@@ -1,0 +1,99 @@
+"""Build the port's CUDA sources at first use.
+
+Each `csrc/<name>.cu` compiles with `nvcc` for Hopper (`sm_90a`) into a shared
+library with a plain C interface, which the kernel wrappers load through
+`ctypes`. The libraries land in `build/torch_kernels/` at the repository root
+(git-ignored), named by a hash of the source and the flags, so an unchanged
+source is compiled once per checkout. A failed build raises with nvcc's
+output. Nothing here runs at import time: the CPU tests import every module
+on machines without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+KERNELS = ("row_gather", "row_scatter_set")
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# nvcc's output (the -Xptxas -v register/spill summary) of each source built
+# by this process; empty for a library found already built.
+ptxas_reports: dict = {}
+
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "meepoembedding_tpu_torch are built from source at first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names=KERNELS) -> None:
+    """Compile every named source that has no built library yet, one nvcc
+    process per source, all started together."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    errors = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        ptxas_reports[name] = out
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, library_path(name))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library of `csrc/<name>.cu`, building it if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.meepo_error_string.argtypes = [ctypes.c_int]
+            lib.meepo_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (cudaGetLastError after it)."""
+    if err != 0:
+        msg = lib.meepo_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} at launch: {msg}")
