@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch + CUDA port's serving path on one card and check it.
+"""Run the PyTorch + CUDA port's serving and training paths on one card
+and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -8,11 +9,19 @@ Phases (any failure exits non-zero and prints no result line):
   card     the device's name and power limit (nvidia-smi).
   build    nvcc builds every kernel source of the port (one process each, all
            at once) and prints the -Xptxas -v summary.
-  kernels  each kernel against its plain PyTorch version, bit-exactly, at the
-           serving path's widths and batch sizes on planes of 2^24 rows:
-           int32, f32 and bf16; indices below 0 and at or beyond R; one-hot
-           lanes of duplicate rows, set through the plane's flat view.
-  serve    the port's main path, with the kernels' launch counters set to 0
+  kernels  each kernel against its plain PyTorch version at the paths'
+           widths and batch sizes on planes of 2^24 rows: int32, f32 and
+           bf16 as each kernel takes them; indices below 0 and at or beyond
+           R; one-hot lanes of duplicate rows, set through the plane's flat
+           view; 64-bit offsets (planes of 2^31 elements). Bit-exact, except
+           row_merge_add over duplicate rows, whose plain version adds with
+           atomics: there within the bound of two f32 summation orders (plus
+           one bf16 unit in the last place on bf16 planes), and the kernel's
+           bits equal on two launches. Then 3 training steps on a 2^16-slot
+           table on the card and on the CPU from one state: key, freq, last,
+           cnt, ovf and counters equal; values, accumulators and loss within
+           rtol 1e-5 / atol 1e-6; dense params within atol 1e-4.
+  serve    the serving path, with the kernels' launch counters set to 0
            just before it: a one-shard checkpoint in the reference format
            (numpy, from --seed) restores into a ScoringService over a
            2^27-slot dim-32 table (rowwise AdaGrad, f32) with the default
@@ -21,18 +30,29 @@ Phases (any failure exits non-zero and prints no result line):
            live, 10% unknown) are scored and timed; one request's rows are
            held against the rows that were written, its scores against the
            tower on the CPU, and one POST /score against the direct score.
+  train    the training path, with the counters set to 0 just before it: a
+           Trainer with the default DLRM (tower from --seed) on the same
+           table (2^27 slots, ~100M rows, dim 32, f32, rowwise AdaGrad)
+           takes 5 warm-up and 30 timed steps of 4096 x 26 one-hot ids from
+           the port's SyntheticStream (Zipf a = 1.2, seeded); ids new to the
+           table, so early steps insert at load 0.745 and later ones mix
+           hits with inserts. Step p50/p99, examples/s, ids/s, unique ids,
+           hits, inserts and drops, first and last loss; fails on a
+           non-finite loss or drops above 1% of inserts. Then
+           torch.profiler over 4 steps.
   timing   each kernel with CUDA events on the live table's planes, at the
-           main path's shapes, beside its plain version, one library call
+           main paths' shapes, beside its plain version, one library call
            and its memory bound (bytes / 3.35 TB/s, H100 SXM); then each
-           kernel against its plain version on those inputs (the sets on
+           kernel against its plain version on those inputs (writes on
            copies of the planes), whose largest difference is max_abs_err.
   profile  torch.profiler over 8 requests and 4 assign batches: wall time,
            device busy time and the heaviest ops of each.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. `--rehearse-on-cpu` runs the serve
-phase on the CPU at the sizes given (with the plain versions) and exits 1
-without a result: a dry run of the control flow on machines without a card.
+and train phases on the CPU at the sizes given (with the plain versions) and
+exits 1 without a result: a dry run of the control flow on machines without
+a card.
 """
 
 from __future__ import annotations
@@ -54,20 +74,28 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from meepoembedding_tpu_torch import ModelConfig, ScoringService, TableConfig, make_http_server
-from meepoembedding_tpu_torch.config import LANES
+from meepoembedding_tpu_torch.config import LANES, RunConfig
+from meepoembedding_tpu_torch.data import SyntheticConfig, SyntheticStream
 from meepoembedding_tpu_torch.kernels import (
     _build,
     row_gather,
     row_gather_plain,
+    row_merge_add,
+    row_merge_add_plain,
+    row_scatter_add,
+    row_scatter_add_plain,
     row_scatter_set,
     row_scatter_set_plain,
 )
 from meepoembedding_tpu_torch.ops import dedup
 from meepoembedding_tpu_torch.table import hashing, table_ops
+from meepoembedding_tpu_torch.train import Trainer
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 CHECK_ROWS_LOG2 = 24  # rows of the planes of the kernel checks
+TRAIN_BATCH, TRAIN_STEPS = 4096, 30  # examples per train step, timed steps on the card
+STEP_IDS = TRAIN_BATCH * 26  # ids of one train step: its unique ids fit in it
 
 
 def log(msg: str) -> None:
@@ -82,7 +110,8 @@ def parse_args():
     p.add_argument("--ckpt-rows", type=int, default=1 << 23, help="rows in the checkpoint")
     p.add_argument("--part-rows", type=int, default=1 << 22, help="rows per part file")
     p.add_argument("--requests", type=int, default=32)
-    p.add_argument("--batch", type=int, default=4096, help="examples per request")
+    p.add_argument("--batch", type=int, default=4096,
+                   help="examples per request (and per train step in a rehearsal)")
     p.add_argument("--rehearse-on-cpu", action="store_true")
     return p.parse_args()
 
@@ -182,7 +211,9 @@ def check_kernels(rows_log2: int, seed: int) -> None:
     def gather_case(name, plane, n):
         idx = torch.randint(0, plane.shape[0], (n,), device=dev, dtype=torch.int32, generator=g)
         idx[::101] = -3
-        idx[1::103] = plane.shape[0] + 7
+        if plane.shape[0] + 7 < 2**31:  # int32 indices at or beyond R, where they fit
+            idx[1::103] = plane.shape[0] + 7
+        idx[2::107] = plane.shape[0] - 1
         got = row_gather(plane, idx)
         want = row_gather_plain(plane, idx)
         torch.cuda.synchronize()
@@ -224,6 +255,9 @@ def check_kernels(rows_log2: int, seed: int) -> None:
                         generator=g)
     set_case("key plane int32 one-hot", plane.view(-1, 1), idx, upd)
     plane.view(torch.float32).normal_(generator=g)
+    # the rowwise accumulator read of a train step: one f32 element per slot
+    # of the flat view (4-byte rows)
+    gather_case("accum elements f32", plane.view(torch.float32).view(-1, 1), STEP_IDS)
     set_case("accum plane f32 one-hot", plane.view(torch.float32).view(-1, 1), idx,
              torch.randn((n, 1), device=dev, generator=g))
     del plane
@@ -236,6 +270,146 @@ def check_kernels(rows_log2: int, seed: int) -> None:
              torch.randn((n, 1), device=dev, generator=g).to(torch.bfloat16))
     del vals, vb
     torch.cuda.empty_cache()
+
+
+def order_bound(base, vrow, upd):
+    """Per element, the most two f32 sums of the same terms in different
+    orders can differ by: 2 * k * 2^-24 * (|old| + sum |upd|) for a row with
+    k updates (the error bound of recursive summation, for each order)."""
+    absum = base.float().abs()
+    row_merge_add_plain(absum, vrow, upd.abs())
+    ok = (vrow >= 0) & (vrow < base.shape[0])
+    k = torch.zeros(base.shape[0], device=base.device)
+    k.index_add_(0, vrow[ok].long(), torch.ones_like(vrow[ok], dtype=torch.float32))
+    return 2 * (k + 1)[:, None] * 2**-24 * absum
+
+
+def within_order_bound(got, want, bound) -> float:
+    """Largest |got - want|; raises where it exceeds `bound` (plus one bf16
+    unit in the last place, at most 2^-7 of the value, on bf16 planes)."""
+    if got.dtype == torch.bfloat16:
+        bound = bound + want.float().abs() * 2**-7
+    err = (got.float() - want.float()).abs()
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"row_merge_add exceeds the summation-order bound by "
+                             f"{float((err - bound).max())}")
+    return float(err.max())
+
+
+def check_add_kernels(rows_log2: int, seed: int) -> None:
+    """row_scatter_add (K3) and row_merge_add (K1) against their plain
+    versions; raises unless bit-exact where the plain version is exact."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    R = 1 << rows_log2
+    n = 1 << 17  # the unique ids of one 4096 x 26 step fit in it
+
+    def exact(name, got, want):
+        ok = torch.equal(_bits(got), _bits(want))
+        log(f"check {name}: {'bit-exact' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+
+    # K3, whole rows of an [R, 128] int32 and f32 plane (unique rows, some
+    # below 0 and at or beyond R), then elements of its flat [R * 128, 1]
+    # view (2^31 elements), as the bucket-plane adds use it
+    plane = torch.randint(-(2**31), 2**31 - 1, (R, 128), device=dev, dtype=torch.int32,
+                          generator=g)
+    rows = (torch.randperm(R + 64, device=dev, generator=g)[:n // 16] - 32).to(torch.int32)
+    flat = _onehot_dup_elements(R, n, 128, 8, g, dev)
+    for dtype in (torch.int32, torch.float32):
+        p = plane if dtype == torch.int32 else plane.view(torch.float32).normal_(generator=g)
+        for what, view, idx in (("rows", p, rows), ("flat view", p.view(-1, 1), flat)):
+            if dtype == torch.int32:
+                upd = torch.randint(-(2**31), 2**31 - 1, (idx.shape[0], view.shape[1]),
+                                    device=dev, dtype=dtype, generator=g)
+            else:
+                upd = torch.randn((idx.shape[0], view.shape[1]), device=dev, generator=g)
+            want = view.clone()
+            row_scatter_add(view, idx, upd)
+            row_scatter_add_plain(want, idx, upd)
+            torch.cuda.synchronize()
+            exact(f"row_scatter_add {what} {tuple(view.shape)} {dtype}, n={idx.shape[0]}",
+                  view, want)
+            del want
+
+    # K1, unique rows (the values update): bit-exact on the [R, 128] f32
+    # plane (64-bit offsets) and on [R, 32] f32 and bf16 value planes
+    fp = plane.view(torch.float32)
+    urow = (torch.randperm(R + 64, device=dev, generator=g)[:n] - 32).to(torch.int32)
+    upd = torch.randn((n, 128), device=dev, generator=g) * 1e-3
+    want = fp.clone()
+    row_merge_add(fp, urow, upd)
+    row_merge_add_plain(want, urow, upd)
+    torch.cuda.synchronize()
+    exact(f"row_merge_add unique rows {tuple(fp.shape)} f32, n={n}", fp, want)
+    del plane, fp, want
+    torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        base = torch.randn((R, 32), device=dev, generator=g).to(dtype)
+        upd = torch.randn((n, 32), device=dev, generator=g) * 1e-3
+        got, want = base.clone(), base.clone()
+        row_merge_add(got, urow, upd)
+        row_merge_add_plain(want, urow, upd)
+        torch.cuda.synchronize()
+        exact(f"row_merge_add unique rows {tuple(base.shape)} {dtype}, n={n}", got, want)
+        # duplicate rows (the gradient segment sum: a Zipf head repeats ids
+        # hundreds of times), drops below 0 and at or beyond R
+        m = STEP_IDS
+        vrow = torch.randint(0, R, (m,), device=dev, generator=g)
+        hot = torch.randint(0, R, (16,), device=dev, generator=g)
+        pick = torch.rand((m,), device=dev, generator=g) < 0.4
+        vrow = torch.where(pick, hot[torch.randint(0, 16, (m,), device=dev, generator=g)], vrow)
+        vrow[::97] = -1
+        vrow[1::89] = R + 3
+        vrow = vrow.to(torch.int32)
+        upd = torch.randn((m, 32), device=dev, generator=g)
+        first, again, want = base.clone(), base.clone(), base.clone()
+        row_merge_add(first, vrow, upd)
+        row_merge_add(again, vrow, upd)
+        row_merge_add_plain(want, vrow, upd)
+        torch.cuda.synchronize()
+        exact(f"row_merge_add duplicate rows, launch against launch, {dtype}", first, again)
+        err = within_order_bound(first, want, order_bound(base, vrow, upd))
+        log(f"check row_merge_add duplicate rows {tuple(base.shape)} {dtype}, m={m}: "
+            f"max |kernel - plain| {err} within the summation-order bound")
+        del base, got, want, first, again
+    torch.cuda.empty_cache()
+
+
+def check_train_parity(seed: int) -> None:
+    """3 Trainer steps on the card and on the CPU from one state (tower from
+    one CPU generator, empty 2^16-slot table, the same batches). Dense
+    params are held within atol 1e-4: one Adam step moves a weight by up to
+    lr = 1e-3 whatever the size of its gradient, so a gradient within
+    rounding of zero (f32 sums in another order on the card) may move it
+    by a different amount."""
+    table_cfg = TableConfig(dim=32, capacity=1 << 16)
+    run_cfg = RunConfig(batch_size=512, steps=3, seed=seed)
+    stream = SyntheticStream(SyntheticConfig(batch_size=512, seed=seed + 5))
+    batches = list(stream.batches(3))
+    trainers = {d: Trainer(run_cfg, table_cfg, ModelConfig(), device=d) for d in ("cpu", "cuda")}
+    losses = {d: [tr.train_step(b)["loss"] for b in batches] for d, tr in trainers.items()}
+    cpu, gpu = trainers["cpu"].shard, trainers["cuda"].shard
+    for name in ("key_hi", "key_lo", "freq", "last", "cnt", "ovf", "counters"):
+        if not torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)):
+            raise AssertionError(f"train parity: {name} differs between card and CPU")
+    errs = {}
+    for name, got, want, tol in (
+        ("values", gpu.values, cpu.values, dict(rtol=1e-5, atol=1e-6)),
+        ("accum", gpu.opt_rowwise[0], cpu.opt_rowwise[0], dict(rtol=1e-5, atol=1e-6)),
+        ("loss", torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
+         dict(rtol=1e-5, atol=1e-6)),
+        ("params", torch.cat([p.detach().reshape(-1) for p in trainers["cuda"].params]),
+         torch.cat([p.detach().reshape(-1) for p in trainers["cpu"].params]),
+         dict(rtol=0.0, atol=1e-4)),
+    ):
+        got = got.cpu()
+        errs[name] = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, **tol, msg=lambda m, n=name: f"train parity {n}: {m}")
+    log(f"check train parity: 3 steps of 512 x 26 ids, card vs CPU: planes and counters "
+        f"equal ({trainers['cuda'].counters()}); max |card - CPU| {errs}; losses "
+        f"{losses['cuda']}")
 
 
 # --- serving -------------------------------------------------------------------
@@ -254,8 +428,16 @@ def make_request(rng, pools, batch, nsparse, unknown_frac=0.1):
     return ids.reshape(batch, nsparse)
 
 
+KERNELS = (row_gather, row_scatter_set, row_scatter_add, row_merge_add)
+
+
 def launches() -> dict:
-    return {"row_gather": row_gather.launches, "row_scatter_set": row_scatter_set.launches}
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
 
 
 def delta(before: dict, calls: int) -> str:
@@ -410,6 +592,65 @@ def serve(args, dev, rng, card: str) -> dict:
     return {"svc": svc, "requests": reqs[3:]}
 
 
+def train(args, table, dev, card: str) -> dict:
+    """Training steps on the serve phase's table, in place. Returns the
+    trainer and spare batches for the timing and profile phases. On the
+    card: TRAIN_BATCH examples a step, TRAIN_STEPS timed steps; in a
+    rehearsal: --batch examples, 3 steps."""
+    bsz, nsteps = (args.batch, 3) if args.rehearse_on_cpu else (TRAIN_BATCH, TRAIN_STEPS)
+    run_cfg = RunConfig(batch_size=bsz, steps=nsteps + 5, seed=args.seed)
+    model_cfg = ModelConfig()
+    stream = SyntheticStream(SyntheticConfig(batch_size=bsz, seed=args.seed + 11))
+    warm = 5
+    batches = list(stream.batches(warm + nsteps + 5))  # 4 profiled, 1 timing
+    tr = Trainer(run_cfg, table.cfg, model_cfg, device=dev,
+                 generator=torch.Generator().manual_seed(args.seed + 13), shard=table.shard)
+    ids_per_step = bsz * model_cfg.num_sparse_features
+    before = tr.counters()
+    live0 = len(table)
+    losses, lat = [], []
+    for i, b in enumerate(batches[:warm + nsteps]):
+        if i == warm:
+            timed_from = tr.counters()
+        t0 = time.perf_counter()
+        # reading the loss syncs; so does each insert-planning round
+        loss = tr.train_step(b)["loss"]
+        lat.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if not np.isfinite(loss):
+            raise AssertionError(f"train step {i}: loss {loss}")
+    sync(dev)
+    after = tr.counters()
+    diff = {k: after[k] - before[k] for k in ("hits", "misses", "inserts", "drops", "denied")}
+    timed = {k: after[k] - timed_from[k] for k in ("hits", "misses", "inserts", "drops")}
+    lat = np.asarray(lat[warm:])
+    steps = len(lat)
+    log(f"train: {warm} warm-up + {steps} timed steps of {bsz} x "
+        f"{model_cfg.num_sparse_features} one-hot ids (Zipf a=1.2) on a table of "
+        f"{live0} live rows, load {live0 / tr.spec.capacity:.4f} at the start")
+    log(f"train: step p50 {np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms, "
+        f"mean {lat.mean():.3f} ms; {bsz * steps / (lat.sum() / 1e3):.0f} "
+        f"examples/s, {ids_per_step * steps / (lat.sum() / 1e3):.0f} ids looked up + "
+        f"updated per s on {card}")
+    log(f"train: unique ids per timed step {(timed['hits'] + timed['misses']) / steps:.1f}; "
+        f"over all {warm + steps} steps: hits {diff['hits']}, inserts {diff['inserts']}, "
+        f"drops {diff['drops']}, denied {diff['denied']} (timed steps: hits {timed['hits']}, "
+        f"inserts {timed['inserts']}, drops {timed['drops']}); live rows {len(table)}, load "
+        f"{len(table) / tr.spec.capacity:.4f}; loss first {losses[0]:.6f}, last "
+        f"{losses[-1]:.6f}; AUC over all steps {tr.auc.compute():.4f}")
+    if diff["drops"] > 0.01 * max(1, diff["inserts"]):
+        raise AssertionError(f"{diff['drops']} drops > 1% of {diff['inserts']} inserts")
+    if diff["inserts"] == 0 or diff["hits"] == 0:
+        raise AssertionError("the train phase must both insert and hit")
+    return {"trainer": tr, "spare": batches[warm + nsteps:]}
+
+
+def profile_train(tr, batches) -> None:
+    """Device busy share and the heaviest ops of training steps."""
+    run_profiled("train", lambda: [tr.train_step(b) for b in batches], len(batches),
+                 "step")
+
+
 def sync(dev) -> None:
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
@@ -451,6 +692,64 @@ def max_abs_err(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+def device_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_ms(fns, kernel: str):
+    """Device time of one call under torch.profiler, over one pass through
+    `fns`: all the device work the call launches, and the part spent in the
+    kernel named `kernel`."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(device_us(e) for e in evs) / len(fns) / 1e3
+    mine = sum(device_us(e) for e in evs if kernel in e.key) / len(fns) / 1e3
+    return total, mine
+
+
+def entry(label, shape, nbytes, kernel, plain, library, check, kname) -> dict:
+    """One timing record: kernel, plain and library times (lists of calls on
+    rotating inputs; CUDA events around 24 calls, so a call whose host side
+    outlasts its device work is timed by its host side), the device time of
+    one wrapper call and of its kernel alone (profiler), the bytes bound and
+    the checked max_abs_err."""
+    call_ms, kernel_ms = device_ms(kernel, kname)
+    e = {"label": label, "shape": shape, "ms": time_ms(kernel), "device_ms": call_ms,
+         "kernel_ms": kernel_ms, "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_err": check()}
+    torch.cuda.empty_cache()
+    return e
+
+
+def gather_entry(label, plane, idxs) -> dict:
+    """The timing record of row_gather on `plane` over the index sets `idxs`."""
+    n, row_bytes = idxs[0].shape[0], plane.shape[1] * plane.element_size()
+    idx64 = [i.long() for i in idxs]
+    return entry(
+        label, f"{tuple(plane.shape)} {plane.dtype}, n={n}",
+        4 * n + 2 * n * row_bytes,  # indices, rows read, rows written
+        [lambda i=i: row_gather(plane, i) for i in idxs],
+        [lambda i=i: row_gather_plain(plane, i) for i in idxs],
+        [lambda i=i: torch.index_select(plane, 0, i) for i in idx64],
+        lambda: max(max_abs_err("row_gather", row_gather(plane, i),
+                                row_gather_plain(plane, i)) for i in idxs),
+        "row_gather_kernel",
+    )
+
+
+def log_timings(out) -> None:
+    for name, e in out:
+        log(f"timing {name} [{e['label']}] {e['shape']}: kernel {e['ms']:.4f} ms (device "
+            f"{e['device_ms']:.4f} ms a call, {e['kernel_ms']:.4f} ms in the kernel), "
+            f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, "
+            f"bound {e['bound_ms']:.4f} ms (bytes); max |kernel - plain| "
+            f"{e['max_abs_err']}")
+
+
 def time_kernels(svc, requests, seed: int) -> list:
     """Each kernel at the main path's shapes on the live table's planes,
     on the inputs of 8 requests (gathers) or 8 restore-sized batches (sets),
@@ -476,26 +775,6 @@ def time_kernels(svc, requests, seed: int) -> list:
         slots.append(torch.where(pr.found, pr.slot, 0).to(torch.int32))
         pgs.append(hashing.bucket_of(uniq.hi, uniq.lo, spec.num_buckets) >> 1)
     pairs = shard.key_hi.view(spec.num_buckets // 2, 2 * LANES)
-
-    def entry(label, shape, nbytes, kernel, plain, library, check):
-        e = {"label": label, "shape": shape, "ms": time_ms(kernel),
-             "plain_ms": time_ms(plain), "library_ms": time_ms(library),
-             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_err": check()}
-        torch.cuda.empty_cache()
-        return e
-
-    def gather_entry(label, plane, idxs):
-        n, row_bytes = idxs[0].shape[0], plane.shape[1] * plane.element_size()
-        idx64 = [i.long() for i in idxs]
-        return entry(
-            label, f"{tuple(plane.shape)} {plane.dtype}, n={n}",
-            4 * n + 2 * n * row_bytes,  # indices, rows read, rows written
-            [lambda i=i: row_gather(plane, i) for i in idxs],
-            [lambda i=i: row_gather_plain(plane, i) for i in idxs],
-            [lambda i=i: torch.index_select(plane, 0, i) for i in idx64],
-            lambda: max(max_abs_err("row_gather", row_gather(plane, i),
-                                    row_gather_plain(plane, i)) for i in idxs),
-        )
 
     def set_check(plane, idxs, new_upd):
         got, want = plane.clone(), plane.clone()
@@ -530,6 +809,7 @@ def time_kernels(svc, requests, seed: int) -> list:
         [lambda x=x: kf.view(-1).index_put_((x["slot64"],), x["keys"]) for x in batches],
         lambda: set_check(kf, set_idx, lambda: torch.randint(
             -(2**31), 2**31 - 1, (n, 1), device=dev, dtype=torch.int32, generator=g)),
+        "row_set_kernel",
     )))
     out.append(("row_scatter_set", entry(
         "whole-row values set per restore batch",
@@ -540,46 +820,151 @@ def time_kernels(svc, requests, seed: int) -> list:
         [lambda x=x: vals.index_put_((x["slot64"],), x["rows"]) for x in batches],
         lambda: set_check(vals, set_idx, lambda: torch.randn(
             (n, spec.dim), device=dev, generator=g)),
+        "row_set_kernel",
     )))
-    for name, e in out:
-        log(f"timing {name} [{e['label']}] {e['shape']}: kernel {e['ms']:.4f} ms, "
-            f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, "
-            f"bound {e['bound_ms']:.4f} ms (bytes); max |kernel - plain| "
-            f"{e['max_abs_err']}")
+    log_timings(out)
+    return out
+
+
+def time_train_kernels(tr, batch, seed: int) -> list:
+    """row_merge_add, row_scatter_add and the accumulator's row_gather at the
+    training path's shapes, on the inputs of one real step: after a train
+    step on `batch`, the probe of
+    its unique ids gives that step's slots, and the dedup its inverse.
+    Timed calls add zeros to the live planes (the table is unchanged) on 8
+    input sets, the slots shifted by a different multiple of a bucket each
+    time (a bijection: still unique), so the L2 cache does not hold the
+    rows of the call before. Checks add random updates into copies of the
+    planes."""
+    shard, spec = tr.shard, tr.spec
+    dev = shard.values.device
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    ids = torch.from_numpy(batch["ids"]).to(dev)
+    hi, lo = hashing.split_ids_t(ids.reshape(-1))
+    n = hi.shape[0]
+    uniq = dedup.unique_pairs(hi, lo, n)
+    tr.train_step(batch)
+    pr = table_ops.probe(spec, shard, uniq.hi, uniq.lo, uniq.valid)
+    ok = pr.found
+    T, C, W = int(ok.sum()), spec.capacity, spec.dim
+    shifts = [((pr.slot.long() + k * 7919 * LANES) % C) for k in range(8)]
+    vrows = [torch.where(ok, s, -1).to(torch.int32) for s in shifts]
+    vrow64 = [s[ok] for s in shifts]
+    out = []
+
+    # the values update: unique rows of the [2^27, 32] plane, f32 deltas
+    vals = shard.values
+    zero = torch.zeros((n, W), device=dev)
+    zero_ok = zero[:T]
+
+    def merge_check(plane, idxs, make_upd):
+        got, want = plane.clone(), plane.clone()
+        for i in idxs:
+            upd = make_upd()
+            row_merge_add(got, i, upd)
+            row_merge_add_plain(want, i, upd)
+        return max_abs_err("row_merge_add", got, want)
+
+    out.append(("row_merge_add", entry(
+        "values update per step (unique rows)",
+        f"{tuple(vals.shape)} {vals.dtype}, m={n} ({T} valid rows)",
+        4 * n + 4 * W * T + 2 * T * W * vals.element_size(),
+        [lambda v=v: row_merge_add(vals, v, zero) for v in vrows],
+        [lambda v=v: row_merge_add_plain(vals, v, zero) for v in vrows],
+        [lambda v=v: vals.index_add_(0, v, zero_ok) for v in vrow64],
+        lambda: merge_check(vals, vrows[:2], lambda: torch.randn(
+            (n, W), device=dev, generator=g) * 1e-3),
+        "merge_add_kernel",
+    )))
+
+    # the gradient segment sum: n batch-order rows into [U, 32], duplicates
+    U = uniq.hi.shape[0]
+    inv, inv64 = uniq.inverse, uniq.inverse.long()
+    grads = [torch.randn((n, W), device=dev, generator=g) * 1e-3 for _ in range(8)]
+    runs = int(torch.unique(inv).shape[0])
+
+    def seg_check():
+        got = dedup.segment_sum_grads(grads[0], inv, U)
+        again = dedup.segment_sum_grads(grads[0], inv, U)
+        want = row_merge_add_plain(torch.zeros((U, W), device=dev), inv, grads[0])
+        if not torch.equal(got, again):
+            raise AssertionError("row_merge_add: two launches gave different bits")
+        return within_order_bound(got, want, order_bound(torch.zeros_like(got), inv, grads[0]))
+
+    out.append(("row_merge_add", entry(
+        "gradient segment sum per step (duplicate rows)",
+        f"[{n}, {W}] f32 -> [{U}, {W}] f32 ({runs} distinct rows)",
+        4 * n + 4 * W * n + 4 * W * runs,
+        [lambda x=x: dedup.segment_sum_grads(x, inv, U) for x in grads],
+        [lambda x=x: row_merge_add_plain(torch.zeros((U, W), device=dev), inv, x)
+         for x in grads],
+        [lambda x=x: torch.zeros((U, W), device=dev).index_add_(0, inv64, x) for x in grads],
+        seg_check,
+        "merge_add_kernel",
+    )))
+
+    # the rowwise accumulator read: one f32 element per unique slot of the
+    # plane's flat view (4-byte rows), slots < 0 clamped as the step does
+    acc = shard.opt_rowwise[0].view(-1, 1)
+    out.append(("row_gather", gather_entry(
+        "accumulator element read per step", acc, [v.clamp(min=0) for v in vrows])))
+
+    # the rowwise accumulator add: one f32 element per unique slot
+    zero1 = torch.zeros((n, 1), device=dev)
+
+    def add_check():
+        got, want = acc.clone(), acc.clone()
+        for v in vrows[:2]:
+            upd = torch.rand((n, 1), device=dev, generator=g)
+            row_scatter_add(got, v, upd)
+            row_scatter_add_plain(want, v, upd)
+        return max_abs_err("row_scatter_add", got, want)
+
+    out.append(("row_scatter_add", entry(
+        "rowwise accumulator add per step",
+        f"{tuple(acc.shape)} f32 (the {tuple(shard.opt_rowwise[0].shape)} plane), m={n} "
+        f"({T} valid)",
+        4 * n + 3 * 4 * T,  # indices; updates read, elements read, elements written
+        [lambda v=v: row_scatter_add(acc, v, zero1) for v in vrows],
+        [lambda v=v: row_scatter_add_plain(acc, v, zero1) for v in vrows],
+        [lambda v=v: acc.view(-1).index_add_(0, v, zero1[:T, 0]) for v in vrow64],
+        add_check,
+        "row_add_kernel",
+    )))
+    log_timings(out)
     return out
 
 
 def profile_phase(svc, reqs, seed: int) -> None:
     """Device busy share and the heaviest ops of scoring and of assign."""
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
     dim = svc.table_cfg.dim
     batches = [(torch.randint(1, 2**62, (1 << 16,), device="cuda", generator=g),
                 torch.rand((1 << 16, dim), device="cuda", generator=g)) for _ in range(4)]
-    work = {
-        "score": (lambda: [svc.score(d, i) for d, i in reqs[:8]], 8),
-        "assign": (lambda: [svc.table.assign(i, r) for i, r in batches], 4),
-    }
-    for name, (fn, count) in work.items():
+    run_profiled("score", lambda: [svc.score(d, i) for d, i in reqs[:8]], 8, "call")
+    run_profiled("assign", lambda: [svc.table.assign(i, r) for i, r in batches], 4, "call")
+
+
+def run_profiled(name: str, fn, count: int, unit: str) -> None:
+    """torch.profiler over `fn` (`count` calls): wall and device busy time per
+    call, and the ops with the most device time."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        ka = prof.key_averages()
-        on_device = [e for e in ka if e.device_type.name == "CUDA"]
-        busy_us = sum(device_us(e) for e in on_device)
-        kernels = sum(e.count for e in on_device)
-        top = sorted(ka, key=device_us, reverse=True)[:8]
-        log(f"profile {name}: {count} calls, wall {wall_us / count / 1e3:.3f} ms/call, device "
-            f"busy {busy_us / count / 1e3:.3f} ms/call ({100 * busy_us / wall_us:.1f}% of wall), "
-            f"{kernels / count:.0f} device kernels and copies per call")
-        for e in top:
-            log(f"profile {name}:   {e.key[:70]:70s} {device_us(e) / count:9.1f} us/call "
-                f"x{e.count // count}")
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ka = prof.key_averages()
+    on_device = [e for e in ka if e.device_type.name == "CUDA"]
+    busy_us = sum(device_us(e) for e in on_device)
+    kernels = sum(e.count for e in on_device)
+    top = sorted(ka, key=device_us, reverse=True)[:10]
+    log(f"profile {name}: {count} {unit}s, wall {wall_us / count / 1e3:.3f} ms/{unit}, device "
+        f"busy {busy_us / count / 1e3:.3f} ms/{unit} ({100 * busy_us / wall_us:.1f}% of wall), "
+        f"{kernels / count:.0f} device kernels and copies per {unit}")
+    for e in top:
+        log(f"profile {name}:   {e.key[:70]:70s} {device_us(e) / count:9.1f} us/{unit} "
+            f"x{e.count / count:g}")
 
 
 # --- main ----------------------------------------------------------------------
@@ -597,8 +982,10 @@ def main() -> int:
     t_start = time.perf_counter()
 
     if rehearse:
+        cpu = torch.device("cpu")
         log("rehearsal on the CPU: plain versions, no build, no timing, no result")
-        serve(args, torch.device("cpu"), rng, "the CPU (rehearsal)")
+        res = serve(args, cpu, rng, "the CPU (rehearsal)")
+        train(args, res["svc"].table, cpu, "the CPU (rehearsal)")
         log(f"rehearsal finished in {time.perf_counter() - t_start:.1f} s")
         return 1
 
@@ -616,19 +1003,33 @@ def main() -> int:
 
     t0 = time.perf_counter()
     check_kernels(CHECK_ROWS_LOG2, args.seed)
+    check_add_kernels(CHECK_ROWS_LOG2, args.seed)
+    check_train_parity(args.seed)
     log(f"kernels: checks passed in {time.perf_counter() - t0:.1f} s")
 
-    row_gather.launches = 0
-    row_scatter_set.launches = 0
+    # each path runs with the launch counters set to 0 just before it
+    cuda = torch.device("cuda")
+    reset_launches()
     t0 = time.perf_counter()
-    res = serve(args, torch.device("cuda"), rng, card)
-    counts = launches()
-    log(f"serve: main path finished in {time.perf_counter() - t0:.1f} s; launches {counts}")
-    for name, count in counts.items():
-        if count <= 0:
-            raise AssertionError(f"the main path never launched {name}")
+    res = serve(args, cuda, rng, card)
+    serve_counts = launches()
+    log(f"serve: path finished in {time.perf_counter() - t0:.1f} s; launches {serve_counts}")
+    for name in ("row_gather", "row_scatter_set"):
+        if serve_counts[name] <= 0:
+            raise AssertionError(f"the serving path never launched {name}")
 
+    reset_launches()
+    t0 = time.perf_counter()
+    tres = train(args, res["svc"].table, cuda, card)
+    train_counts = launches()
+    log(f"train: path finished in {time.perf_counter() - t0:.1f} s; launches {train_counts}")
+    for name, count in train_counts.items():
+        if count <= 0:
+            raise AssertionError(f"the training path never launched {name}")
+
+    profile_train(tres["trainer"], tres["spare"][:4])
     timings = time_kernels(res["svc"], res["requests"], args.seed)
+    timings += time_train_kernels(tres["trainer"], tres["spare"][4], args.seed)
     profile_phase(res["svc"], res["requests"], args.seed)
     meta = {
         "row_gather": ("meepoembedding_tpu_torch/csrc/row_gather.cu",
@@ -636,17 +1037,25 @@ def main() -> int:
         "row_scatter_set": ("meepoembedding_tpu_torch/csrc/row_scatter_set.cu",
                             "meepoembedding_tpu/table/pallas_ops.py:200 + "
                             "meepoembedding_tpu/table/stream_merge.py:224"),
+        "row_scatter_add": ("meepoembedding_tpu_torch/csrc/row_scatter_add.cu",
+                            "meepoembedding_tpu/table/pallas_ops.py:187"),
+        "row_merge_add": ("meepoembedding_tpu_torch/csrc/row_merge_add.cu",
+                          "meepoembedding_tpu/table/stream_merge.py:61"),
     }
+    keys = ("label", "shape", "ms", "device_ms", "kernel_ms", "plain_ms", "bound_ms",
+            "library_ms", "max_abs_err")
     kernels = []
-    for name in ("row_gather", "row_scatter_set"):
+    for name, (source, replaces) in meta.items():
         mine = [t for n, t in timings if n == name]
-        e = mine[0]  # the main shape
+        e = mine[0]  # the first shape listed is the kernel's main one
         kernels.append({
-            "name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
-            "launches": counts[name], "max_abs_err": max(t["max_abs_err"] for t in mine),
-            "ms": e["ms"],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": train_counts[name], "launches_serve": serve_counts[name],
+            "max_abs_err": max(t["max_abs_err"] for t in mine), "ms": e["ms"],
+            "device_ms": e["device_ms"], "kernel_ms": e["kernel_ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": "bytes",
             "library_ms": e["library_ms"], "shape": e["shape"],
+            "shapes": [{k: t[k] for k in keys} for t in mine],
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

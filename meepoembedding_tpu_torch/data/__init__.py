@@ -1,0 +1,3 @@
+"""Data sources of the port (numpy; batches are dicts of arrays)."""
+
+from meepoembedding_tpu_torch.data.synthetic import SyntheticConfig, SyntheticStream  # noqa: F401

@@ -8,6 +8,14 @@ integer attribute, `<wrapper>.launches`.
 """
 
 from meepoembedding_tpu_torch.kernels.row_gather import row_gather, row_gather_plain  # noqa: F401
+from meepoembedding_tpu_torch.kernels.row_merge_add import (  # noqa: F401
+    row_merge_add,
+    row_merge_add_plain,
+)
+from meepoembedding_tpu_torch.kernels.row_scatter_add import (  # noqa: F401
+    row_scatter_add,
+    row_scatter_add_plain,
+)
 from meepoembedding_tpu_torch.kernels.row_scatter_set import (  # noqa: F401
     row_scatter_set,
     row_scatter_set_plain,

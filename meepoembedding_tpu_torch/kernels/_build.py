@@ -19,7 +19,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-KERNELS = ("row_gather", "row_scatter_set")
+KERNELS = ("row_gather", "row_scatter_set", "row_scatter_add", "row_merge_add")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (

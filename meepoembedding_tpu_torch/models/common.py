@@ -1,4 +1,4 @@
-"""Shared model pieces (port of `meepoembedding_tpu/models/common.py:12-62`)."""
+"""Shared model pieces (port of `meepoembedding_tpu/models/common.py:12-75`)."""
 
 from __future__ import annotations
 
@@ -57,3 +57,19 @@ def model_apply(model, dense, emb, bag_valid=None):
     if getattr(model, "pools_inside", False):
         return model(dense, emb, bag_valid)
     return model(dense, emb)
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Binary cross-entropy on logits, numerically stable (the reference's
+    formula: mean(max(z, 0) - z * y + log1p(exp(-|z|))))."""
+    z = logits.reshape(-1)
+    y = labels.reshape(-1).to(torch.float32)
+    return torch.mean(torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-z.abs())))
+
+
+def model_loss(model, dense, emb, bag_valid, label):
+    """The trainer's objective for CTR rankers: pointwise BCE over the
+    model's logits. Returns (loss, logits). The reference's retrieval
+    models (in-batch softmax) wait for the model zoo's slice."""
+    logits = model_apply(model, dense, emb, bag_valid)
+    return bce_with_logits(logits, label), logits

@@ -1,5 +1,5 @@
-"""Batch id deduplication with inverse index (port of
-`meepoembedding_tpu/ops/dedup.py:20-26,119-189`).
+"""Batch id deduplication with inverse index, and its backward (port of
+`meepoembedding_tpu/ops/dedup.py:20-26,119-206`).
 
 The unique ORDER is the reference's, because insert planning depends on it:
 ids sort lexicographically by (hi ^ 0x80000000, lo ^ 0x80000000) as unsigned
@@ -11,6 +11,11 @@ The two biased words fit one int64 sort key that keeps their order:
 ((bh - 2^31) << 32) + bl. The reference's TPU workarounds (MXU prefix sums,
 sort-based compaction) are plain `cumsum` and a scatter here, with no
 host synchronisation.
+
+The backward of the gather by `inverse` is a segment sum of the
+per-occurrence gradients into the unique rows: the K1 merge-add kernel
+(`kernels.row_merge_add`) into a zeroed [U, dim] plane, which sums each
+unique row's gradients in input order, the same bits on every launch.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from meepoembedding_tpu_torch.kernels import row_gather, row_merge_add
 from meepoembedding_tpu_torch.table import hashing
 
 
@@ -77,3 +83,27 @@ def unique_pairs(hi: torch.Tensor, lo: torch.Tensor, size: int,
     valid = hashing.is_valid(uh, ul)
     return Unique(hi=uh, lo=ul, inverse=inverse, valid=valid,
                   count=valid.sum().to(torch.int32))
+
+
+def segment_sum_grads(grads: torch.Tensor, inverse: torch.Tensor, num_unique: int) -> torch.Tensor:
+    """[n, dim] per-occurrence grads -> [U, dim] f32 per-unique-id grads.
+    Entries of `inverse` outside [0, U) are dropped."""
+    out = torch.zeros((num_unique, grads.shape[1]), dtype=torch.float32, device=grads.device)
+    return row_merge_add(out, inverse, grads.float().contiguous())
+
+
+class GatherRows(torch.autograd.Function):
+    """rows_u[inverse]: the unique rows expanded to batch order (K2), whose
+    gradient is the segment sum of the batch-order gradients (K1). This is
+    how the model's gradient reaches the unique rows of a training step."""
+
+    @staticmethod
+    def forward(ctx, rows_u: torch.Tensor, inverse: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(inverse)
+        ctx.num_unique = rows_u.shape[0]
+        return row_gather(rows_u.contiguous(), inverse)
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        (inverse,) = ctx.saved_tensors
+        return segment_sum_grads(grad_out, inverse, ctx.num_unique), None

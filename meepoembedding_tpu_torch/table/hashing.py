@@ -1,5 +1,5 @@
-"""Stateless uint32 hashing of 64-bit feature ids (port of
-`meepoembedding_tpu/table/hashing.py:18-86`).
+"""Stateless uint32 hashing of 64-bit feature ids and the fresh-row
+initializer (port of `meepoembedding_tpu/table/hashing.py:18-136`).
 
 An id `k` lives on the device as a pair of int32 tensors (hi = k >> 32,
 lo = k & 0xffffffff), exactly as in the reference, so every hash, bucket
@@ -99,3 +99,43 @@ def owner_of(hi, lo, num_shards: int) -> torch.Tensor:
 def is_valid(hi, lo) -> torch.Tensor:
     """False for the reserved invalid/pad id."""
     return ~((hi == EMPTY_HI) & (lo == EMPTY_LO))
+
+
+INITIALIZERS = ("uniform", "normal", "truncated_normal", "constant")
+_P_LO = 0.02275013194817921  # Phi(-2)
+
+
+def default_rows(hi, lo, dim: int, scale: float, dtype=torch.float32,
+                 kind: str = "uniform") -> torch.Tensor:
+    """Deterministic fresh-row initializer derived from the key hash alone,
+    so a row's init does not depend on insert order. scale == 0 gives zeros
+    for every kind.
+
+      uniform           Uniform(-scale, scale), bit-exact with the reference
+      normal            Normal(0, scale) via the inverse CDF (erfinv)
+      truncated_normal  Normal(0, scale) truncated to +-2 sigma, exactly
+      constant          every element == scale
+
+    The per-lane hash streams and the uniform draws are the reference's
+    bits; `torch.special.erfinv` may differ from JAX's in the last places."""
+    n = hi.shape[0]
+    if scale == 0.0:
+        return torch.zeros((n, dim), dtype=dtype, device=hi.device)
+    if kind == "constant":
+        return torch.full((n, dim), scale, dtype=dtype, device=hi.device)
+    if kind not in INITIALIZERS:
+        raise ValueError(f"initializer must be one of {INITIALIZERS}, got {kind!r}")
+    h0 = hash_pair(hi, lo, SALT_INIT)  # [n]
+    d = torch.arange(dim, dtype=torch.int64, device=hi.device)
+    bits = fmix32((h0[:, None] + _mul32(d & M32, 0x9E3779B9)[None, :]) & M32)
+    # top 24 bits -> uniform [0, 1), exact in f32
+    u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    if kind == "uniform":
+        return ((u * 2.0 - 1.0) * scale).to(dtype)
+    if kind == "truncated_normal":
+        # u into (Phi(-2), Phi(2)), then inverted: exact truncation
+        uu = _P_LO + u * (1.0 - 2.0 * _P_LO)
+    else:
+        uu = u.clamp(1e-7, 1.0 - 1e-7)
+    z = torch.sqrt(torch.tensor(2.0, dtype=torch.float32)) * torch.special.erfinv(2.0 * uu - 1.0)
+    return (z * scale).to(dtype)

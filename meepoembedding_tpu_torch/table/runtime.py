@@ -1,11 +1,10 @@
-"""Table runtime: the logical `DynamicEmbeddingTable` (port of the serving
-part of `meepoembedding_tpu/table/runtime.py`).
+"""Table runtime: the logical `DynamicEmbeddingTable` (port of
+`meepoembedding_tpu/table/runtime.py`).
 
-It owns the static spec and the device shard and exposes probe-only lookups,
-bulk upserts and checkpoint restore. The training half (insert-on-miss
-lookups, sparse optimizer updates, eviction, removal and online growth) is
-not ported yet: those methods raise and name the queue in ROADMAP.md that
-holds them.
+It owns the static spec and the device shard and exposes lookups (probe-only
+or insert-on-miss), sparse gradient updates, bulk upserts and checkpoint
+restore. Eviction, removal and online growth are not ported yet: they raise
+and name the item of ROADMAP.md that holds them.
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ import torch
 
 from meepoembedding_tpu_torch.config import TableConfig
 from meepoembedding_tpu_torch.kernels import row_gather
-from meepoembedding_tpu_torch.ops import dedup
+from meepoembedding_tpu_torch.ops import dedup, optim
 from meepoembedding_tpu_torch.table import hashing, table_ops
 from meepoembedding_tpu_torch.table.layout import (
     ERASES,
@@ -28,7 +27,7 @@ from meepoembedding_tpu_torch.table.layout import (
     resolve_device,
 )
 
-_TRAINING = "not ported yet: the training slice (ROADMAP.md, queue 1, 'Training')"
+_LIFECYCLE = "not ported yet (ROADMAP.md, queue 1, 'Lifecycle')"
 
 
 def _ids_tensor(ids64, device) -> torch.Tensor:
@@ -38,9 +37,11 @@ def _ids_tensor(ids64, device) -> torch.Tensor:
 
 
 class DynamicEmbeddingTable:
-    """Hash-keyed embedding table, single shard, serving API.
+    """Hash-keyed embedding table, single shard.
 
     >>> t = DynamicEmbeddingTable(TableConfig(dim=16, capacity=1 << 16), device="cpu")
+    >>> rows = t.lookup(ids)                   # trains: insert on miss
+    >>> t.apply_grads(grads)                   # sparse update of those ids
     >>> t.assign(ids, rows)                    # bulk upsert
     >>> t.lookup(ids, train=False)             # probe-only: unknown ids -> zeros
     """
@@ -51,15 +52,17 @@ class DynamicEmbeddingTable:
         self.spec = TableSpec.from_config(cfg, num_shards=1)
         self.shard: TableShard = alloc_shard(self.spec, self.device)
         self.step = 0
+        self._last = None  # (slot [U], inverse [npad], n) of the last train lookup
 
     def lookup(self, ids64, train: bool = True) -> torch.Tensor:
         """[n] int64 ids (numpy or tensor) -> [n, dim] rows on the table's
-        device. Only `train=False` is ported: unknown ids give zero rows.
+        device. `train=True` inserts missed ids (fresh rows take their
+        deterministic init, written into the table now, with their
+        accumulator init) and remembers the slots for `apply_grads`;
+        `train=False` probes only, and unknown ids give zero rows.
 
         The batch pads to the next power of two with the invalid id, as in
         the reference, so its unique order and capacity match exactly."""
-        if train:
-            raise NotImplementedError(f"lookup(train=True) is {_TRAINING}")
         ids = _ids_tensor(ids64, self.device)
         n = ids.shape[0]
         npad = max(1, 1 << max(0, (n - 1).bit_length()))
@@ -67,6 +70,20 @@ class DynamicEmbeddingTable:
             ids = torch.cat([ids, ids.new_full((npad - n,), int(hashing.EMPTY_ID))])
         hi, lo = hashing.split_ids_t(ids)
         uniq = dedup.unique_pairs(hi, lo, size=npad)
+        if train:
+            if self.cfg.grow_at_load is not None:
+                raise NotImplementedError(f"online growth in lookup(train=True) is {_LIFECYCLE}")
+            spec, shard = self.spec, self.shard
+            ctx = table_ops.lookup_train(spec, shard, uniq.hi, uniq.lo, uniq.valid, self.step)
+            # this API materialises fresh rows at lookup, even if apply_grads
+            # never follows (the trainer folds them into its update instead)
+            table_ops.scatter_add_values(shard.values, ctx.slot, ctx.rows_u, ctx.fresh)
+            if shard.opt_rowwise:
+                table_ops.scatter_add_bucket_plane(
+                    shard.opt_rowwise[0], ctx.slot, spec.optimizer.initial_accumulator,
+                    ctx.fresh)
+            self._last = (ctx.slot, uniq.inverse, n)
+            return row_gather(ctx.rows_u, uniq.inverse[:n]).to(spec.dtype)
         pr = table_ops.probe(self.spec, self.shard, uniq.hi, uniq.lo, uniq.valid)
         rows = table_ops.lookup_rows(self.shard, torch.where(pr.found, pr.slot, -1))
         return row_gather(rows, uniq.inverse[:n])
@@ -83,14 +100,24 @@ class DynamicEmbeddingTable:
         )
         return ok.cpu().numpy()
 
-    def apply_grads(self, grads):
-        raise NotImplementedError(f"apply_grads is {_TRAINING}")
+    def apply_grads(self, grads) -> None:
+        """Sparse optimizer update of the ids of the last train lookup, with
+        one [n, dim] gradient row per looked-up id (duplicates summed)."""
+        if self._last is None:
+            raise RuntimeError("apply_grads requires a prior lookup(train=True)")
+        slot, inverse, n = self._last
+        grads = torch.as_tensor(grads).to(self.device, torch.float32).reshape(-1, self.spec.dim)
+        if grads.shape[0] != n:
+            raise ValueError(f"grads rows {grads.shape[0]} != last lookup batch {n}")
+        g = dedup.segment_sum_grads(grads, inverse[:n], num_unique=slot.shape[0])
+        optim.apply_sparse_grads(self.spec, self.shard, slot, g)
+        self.step += 1
 
     def evict(self) -> int:
-        raise NotImplementedError(f"evict is {_TRAINING}")
+        raise NotImplementedError(f"evict is {_LIFECYCLE}")
 
     def remove(self, ids64) -> int:
-        raise NotImplementedError(f"remove is {_TRAINING}")
+        raise NotImplementedError(f"remove is {_LIFECYCLE}")
 
     def __len__(self) -> int:
         return int(self.shard.cnt.sum())

@@ -1,5 +1,5 @@
-"""Table storage ops on tensors (port of the serving-path subset of
-`meepoembedding_tpu/table/xla_ops.py`).
+"""Table storage ops on tensors (port of `meepoembedding_tpu/table/xla_ops.py`,
+the serving and training paths).
 
   probe              XOR pair-probing: one row gather per two rounds of each
                      key plane, viewed as [nb/2, 256] bucket pairs.
@@ -8,10 +8,17 @@
   insert_rows        bulk upsert (restore, `table.assign`): probe, plan, then
                      row sets into every plane, in place.
   lookup_rows        found-row gather from the values plane.
+  cms_admit          count-min-sketch frequency admission.
+  lookup_train       the training lookup: probe, admission, insert planning
+                     and the side-plane writes of fresh keys, with the rows
+                     of every unique id (fresh ids: their init) and no write
+                     to the values plane.
 
-Every row gather goes through `kernels.row_gather` and every write of the
-restore path through `kernels.row_scatter_set`; on CPU tensors those take
-their plain versions. Shards are updated in place.
+Every row gather goes through `kernels.row_gather`, every row set through
+`kernels.row_scatter_set`, every bucket-plane add through
+`kernels.row_scatter_add` and every values-plane add through
+`kernels.row_merge_add`; on CPU tensors those take their plain versions.
+Shards are updated in place.
 
 The reference writes with `mode="drop"` scatters whose dropped entries carry
 the index `len`; PyTorch has no such mode, so the small [nb] count updates
@@ -28,9 +35,22 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from meepoembedding_tpu_torch.config import LANES
-from meepoembedding_tpu_torch.kernels import row_gather, row_scatter_set
+from meepoembedding_tpu_torch.kernels import (
+    row_gather,
+    row_merge_add,
+    row_scatter_add,
+    row_scatter_set,
+)
 from meepoembedding_tpu_torch.table import hashing
-from meepoembedding_tpu_torch.table.layout import INSERTS, TableShard, TableSpec
+from meepoembedding_tpu_torch.table.layout import (
+    DENIED,
+    DROPS,
+    HITS,
+    INSERTS,
+    MISSES,
+    TableShard,
+    TableSpec,
+)
 
 
 class ProbeResult(NamedTuple):
@@ -194,6 +214,106 @@ def scatter_set_values(plane: torch.Tensor, slot, rows, enabled) -> None:
     value plane."""
     idx = torch.where(enabled, slot, -1).to(torch.int32)
     row_scatter_set(plane, idx, rows.to(plane.dtype).contiguous())
+
+
+def gather_bucket_plane(plane: torch.Tensor, slot) -> torch.Tensor:
+    """plane[slot // 128, slot % 128] for a [nb, 128] plane: one element
+    gather from its flat [nb * 128, 1] view. Slots < 0 read slot 0, as in
+    the reference; the caller masks them."""
+    return row_gather(plane.view(-1, 1), slot.clamp(min=0).to(torch.int32)).view(-1)
+
+
+def scatter_add_bucket_plane(plane: torch.Tensor, slot, val, enabled) -> None:
+    """plane[slot // 128, slot % 128] += val where enabled, in place, for a
+    [nb, 128] int32 (wrapping) or f32 plane: one element add on its flat
+    [nb * 128, 1] view (enabled slots are unique)."""
+    val = torch.as_tensor(val, device=slot.device).to(plane.dtype).expand(slot.shape)
+    idx = torch.where(enabled, slot, -1).to(torch.int32)
+    row_scatter_add(plane.view(-1, 1), idx, val.reshape(-1, 1).contiguous())
+
+
+def scatter_add_values(plane: torch.Tensor, slot, rows, enabled) -> None:
+    """plane[slot] += rows where enabled, in place, for the row-major values
+    plane or a full-dim optimizer plane like it: whole rows, summed in f32
+    and rounded once (the reference's `values_scatter_add`)."""
+    idx = torch.where(enabled, slot, -1).to(torch.int32)
+    row_merge_add(plane, idx, rows.float().contiguous())
+
+
+def touch(shard: TableShard, slot, enabled, step: int) -> None:
+    """Record hits in place: freq += 1, last = step."""
+    scatter_add_bucket_plane(shard.freq, slot, 1, enabled)
+    scatter_bucket_plane(shard.last, slot, step, enabled)
+
+
+def cms_admit(spec: TableSpec, cms: torch.Tensor, uh, ul, miss) -> torch.Tensor:
+    """Count-min-sketch frequency admission: count each missed key in every
+    hash row (in place), then admit it once its smallest count reaches
+    `admit_threshold`. Keys that share a column count more than once, as in
+    the reference (for each hash row, add first, then read). Threshold <= 1
+    admits every miss."""
+    thresh = spec.policy.admit_threshold
+    if thresh <= 1 or cms.shape[1] == 0:
+        return miss
+    w = cms.shape[1]
+    est = None
+    for j in range(4):
+        col = hashing.hash_pair(uh, ul, hashing.SALT_CMS[j]) % w
+        cms[j].index_add_(0, col, miss.to(torch.int32))  # exact integer adds
+        e = cms[j][col]
+        est = e if est is None else torch.minimum(est, e)
+    return miss & (est >= thresh)
+
+
+class LookupCtx(NamedTuple):
+    """What `lookup_train` hands to the sparse optimizer."""
+
+    slot: torch.Tensor  # i32 [U]; -1 == invalid, denied or dropped
+    found: torch.Tensor  # bool [U] key pre-existed
+    fresh: torch.Tensor  # bool [U] inserted by this lookup
+    rows_u: torch.Tensor  # f32 [U, dim] rows as read (fresh: init; slot < 0: zeros)
+
+
+def lookup_train(spec: TableSpec, shard: TableShard, uh, ul, valid, step: int) -> LookupCtx:
+    """Training lookup of deduplicated keys, in place: probe, CMS admission,
+    insert planning, and the side-plane writes of fresh keys (key, freq = 1,
+    last = step), without touching the values plane. Found rows are read
+    from the values plane as it was before any write; fresh rows take
+    `hashing.default_rows`. The values plane then receives init + optimizer
+    delta in one update (`optim.apply_sparse_grads_ctx`).
+
+    The reference writes fresh keys as adds over the sentinel and zero state
+    of free slots; the port sets them, which gives the same bits. Nothing
+    branches on whether any key is fresh: a launch whose indices are all -1
+    writes nothing. With `policy.needs_scores`, found keys also get
+    freq += 1 and last = step."""
+    pr = probe(spec, shard, uh, ul, valid)
+    miss = valid & ~pr.found
+    admit = cms_admit(spec, shard.cms, uh, ul, miss)
+    plan = plan_insert(spec, shard, uh, ul, admit)
+    slot = torch.where(pr.found, pr.slot, plan.slot)
+    fresh = plan.ok
+
+    rows = gather_values(shard.values, slot)
+    init = hashing.default_rows(uh, ul, spec.dim, spec.initializer_scale, spec.dtype,
+                                kind=spec.initializer)
+    rows_u = torch.where(fresh[:, None], init, rows).float()
+    rows_u.masked_fill_((slot < 0)[:, None], 0.0)
+
+    scatter_bucket_plane(shard.key_hi, slot, uh, fresh)
+    scatter_bucket_plane(shard.key_lo, slot, ul, fresh)
+    scatter_bucket_plane(shard.freq, slot, 1, fresh)
+    scatter_bucket_plane(shard.last, slot, step, fresh)
+    if spec.policy.needs_scores:
+        touch(shard, slot, pr.found, step)
+
+    shard.cnt.copy_(plan.cnt)
+    shard.ovf.copy_(plan.ovf)
+    events = torch.stack([pr.found.sum(), miss.sum(), fresh.sum(), (admit & ~fresh).sum(),
+                          (miss & ~admit).sum()]).to(torch.int32)
+    at = torch.tensor([HITS, MISSES, INSERTS, DROPS, DENIED], device=events.device)
+    shard.counters.index_add_(0, at, events)
+    return LookupCtx(slot=slot, found=pr.found, fresh=fresh, rows_u=rows_u)
 
 
 def insert_rows(

@@ -1,0 +1,98 @@
+"""Shared by `test_torch_train.py` and `test_torch_train_bags.py`: one
+training case run through the port's Trainer and the JAX package's from one
+state, with everything compared after every step and at the end.
+
+Exact: key, freq, last, cnt and ovf planes and the counters (so every slot,
+insert and drop). Within rtol 1e-5 / atol 1e-6: loss, logits, values,
+optimizer state and dense params. The towers' f32 matmuls and the segment
+sums run in another order in PyTorch than in XLA, and the reference's
+rowwise accumulator sums g^2 over 128 window lanes where the port sums
+over dim lanes."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from meepoembedding_tpu.config import ModelConfig as JModelConfig
+from meepoembedding_tpu.config import OptimizerConfig as JOptimizerConfig
+from meepoembedding_tpu.config import RunConfig as JRunConfig
+from meepoembedding_tpu.config import TableConfig as JTableConfig
+from meepoembedding_tpu.data.synthetic import SyntheticConfig as JSyntheticConfig
+from meepoembedding_tpu.data.synthetic import SyntheticStream as JSyntheticStream
+from meepoembedding_tpu.table import hashing as jh
+from meepoembedding_tpu.table import xla_ops as jx
+from meepoembedding_tpu.train import Trainer as JTrainer
+from meepoembedding_tpu_torch.config import ModelConfig, OptimizerConfig, RunConfig, TableConfig
+from meepoembedding_tpu_torch.data import SyntheticConfig, SyntheticStream
+from meepoembedding_tpu_torch.train import Trainer
+from meepoembedding_tpu_torch.weights import from_jax_params
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+INT_PLANES = ("key_hi", "key_lo", "freq", "last", "cnt", "ovf", "counters")
+
+
+def configs(dim, bag, kind, run_opts, steps=3):
+    table = dict(dim=dim, capacity=2048, max_probe_rounds=2)
+    model = dict(num_dense_features=4, num_sparse_features=3, embedding_dim=dim,
+                 bottom_mlp=(16, dim), top_mlp=(16, 1))
+    run = dict(batch_size=96, steps=steps, seed=dim + bag, dense_learning_rate=1e-3,
+               **run_opts)
+    jcfg = (JRunConfig(**run), JTableConfig(**table, optimizer=JOptimizerConfig(kind=kind)),
+            JModelConfig(**model))
+    tcfg = (RunConfig(**run), TableConfig(**table, optimizer=OptimizerConfig(kind=kind)),
+            ModelConfig(**model))
+    data = dict(num_dense=4, num_sparse=3, batch_size=96, vocab_per_feature=400, seed=bag,
+                bag_len=bag)
+    return jcfg, tcfg, data
+
+
+def jax_step(jt, batch):
+    """`JTrainer.train_step`, keeping the logits it feeds to its AUC."""
+    hi, lo = jh.split_ids(batch["ids"])
+    jt.shard, jt.params, jt.opt_state, loss, logits = jt._step_fn(
+        jt.shard, jt.params, jt.opt_state, jnp.asarray(batch["dense"]), jnp.asarray(hi),
+        jnp.asarray(lo), jnp.asarray(batch["label"]), jnp.int32(jt.step), None)
+    jt.step += 1
+    return float(loss), np.asarray(logits)
+
+
+def assert_tables_match(jspec, jshard, tshard):
+    for name in INT_PLANES:
+        np.testing.assert_array_equal(getattr(tshard, name).numpy(),
+                                      np.asarray(getattr(jshard, name)), err_msg=name)
+    slots = jnp.arange(jspec.capacity, dtype=jnp.int32)
+    np.testing.assert_allclose(tshard.values.numpy(),
+                               np.asarray(jx.gather_values(jspec, jshard.values, slots)),
+                               **TOL, err_msg="values")
+    for j, (tp, jp) in enumerate(zip(tshard.opt_fulldim, jshard.opt_fulldim)):
+        np.testing.assert_allclose(tp.numpy(), np.asarray(jx.gather_values(jspec, jp, slots)),
+                                   **TOL, err_msg=f"fulldim {j}")
+    for tp, jp in zip(tshard.opt_rowwise, jshard.opt_rowwise):
+        np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL, err_msg="accum")
+
+
+def run_trainer_case(dim, bag, kind, run_opts, check_eval=False):
+    (jrc, jtc, jmc), (rc, tc, mc), data = configs(dim, bag, kind, run_opts)
+    jt = JTrainer(jrc, jtc, jmc)
+    tt = Trainer(rc, tc, mc, device="cpu")
+    from_jax_params(tt.model, jax.tree_util.tree_map(np.asarray, jt.params))
+    batches = list(JSyntheticStream(JSyntheticConfig(**data)).batches(rc.steps + 1))
+    mine = list(SyntheticStream(SyntheticConfig(**data)).batches(rc.steps + 1))
+    for b, m in zip(batches, mine):  # the port's copy of the stream gives the same batches
+        for k in b:
+            np.testing.assert_array_equal(b[k], m[k])
+    for step, batch in enumerate(batches[:-1]):
+        jloss, jlogits = jax_step(jt, batch)
+        tloss = tt.train_step(batch)["loss"]
+        np.testing.assert_allclose(tloss, jloss, **TOL, err_msg=f"loss, step {step}")
+        np.testing.assert_allclose(tt.last_logits.numpy(), jlogits, **TOL,
+                                   err_msg=f"logits, step {step}")
+    assert_tables_match(jt.spec, jt.shard, tt.shard)
+    assert tt.counters()["inserts"] > 0 and tt.counters()["hits"] > 0
+    for jp, tp in zip(jax.tree_util.tree_leaves(jt.params), tt.params):
+        jp = np.asarray(jp)
+        np.testing.assert_allclose(tp.detach().numpy(), jp.T if jp.ndim == 2 else jp, **TOL)
+    if check_eval:  # probe-only eval on a batch of known and unknown ids
+        jev, tev = jt.eval_step(batches[-1]), tt.eval_step(batches[-1])
+        np.testing.assert_allclose(tev["loss"], jev["loss"], **TOL)
+        np.testing.assert_allclose(tev["logits"].numpy(), np.asarray(jev["logits"]), **TOL)
