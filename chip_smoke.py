@@ -13,14 +13,21 @@ Phases (any failure exits non-zero and prints no result line):
            widths and batch sizes on planes of 2^24 rows: int32, f32 and
            bf16 as each kernel takes them; indices below 0 and at or beyond
            R; one-hot lanes of duplicate rows, set through the plane's flat
-           view; 64-bit offsets (planes of 2^31 elements). Bit-exact, except
-           row_merge_add over duplicate rows, whose plain version adds with
-           atomics: there within the bound of two f32 summation orders (plus
-           one bf16 unit in the last place on bf16 planes), and the kernel's
-           bits equal on two launches. Then 3 training steps on a 2^16-slot
-           table on the card and on the CPU from one state: key, freq, last,
-           cnt, ovf and counters equal; values, accumulators and loss within
-           rtol 1e-5 / atol 1e-6; dense params within atol 1e-4.
+           view; 64-bit offsets (planes of 2^31 elements); the multi-plane
+           set at 1, 2, 3, 4 and 8 planes with scalar and tensor values.
+           Bit-exact, except the segment sum (row_merge_add's kernels for
+           duplicate rows), whose plain version adds with atomics: there
+           within the bound of two f32 summation orders, and the kernels'
+           bits equal on two calls. The segment sum also on one train
+           step's dedup (with one id repeated 5,000 times more): runs of
+           <= S updates (the kernel's segment size) bit-exact against the
+           input-order sum, all runs within the order bound, the same bits
+           on two calls and with the wrapper's own sort; under
+           unique-capacity overflow too. Then 3
+           training steps on a 2^16-slot table on the card and on the CPU
+           from one state: key, freq, last, cnt, ovf and counters equal;
+           values, accumulators and loss within rtol 1e-5 / atol 1e-6;
+           dense params within atol 1e-4.
   serve    the serving path, with the kernels' launch counters set to 0
            just before it: a one-shard checkpoint in the reference format
            (numpy, from --seed) restores into a ScoringService over a
@@ -37,14 +44,22 @@ Phases (any failure exits non-zero and prints no result line):
            the port's SyntheticStream (Zipf a = 1.2, seeded); ids new to the
            table, so early steps insert at load 0.745 and later ones mix
            hits with inserts. Step p50/p99, examples/s, ids/s, unique ids,
-           hits, inserts and drops, first and last loss; fails on a
-           non-finite loss or drops above 1% of inserts. Then
+           hits, inserts and drops, first and last loss, launches per step;
+           fails on a non-finite loss, drops above 1% of inserts, or other
+           than 1 row_scatter_set and 3 row_merge_add launches a step (the
+           values update; the segment sum's walk and combine pass; an
+           assign batch: other than 3 row_scatter_set launches). Then
            torch.profiler over 4 steps.
   timing   each kernel with CUDA events on the live table's planes, at the
            main paths' shapes, beside its plain version, one library call
            and its memory bound (bytes / 3.35 TB/s, H100 SXM); then each
            kernel against its plain version on those inputs (writes on
            copies of the planes), whose largest difference is max_abs_err.
+           Also the train step's and a restore batch's multi-plane sets
+           (library: one index_put_ a plane), the segment sum's walk and
+           combine pass apart, a check that the step's valid slots are
+           unique, and the host time of one call of the K1 and K4/K5
+           wrappers.
   profile  torch.profiler over 8 requests and 4 assign batches: wall time,
            device busy time and the heaviest ops of each.
 
@@ -85,7 +100,11 @@ from meepoembedding_tpu_torch.kernels import (
     row_scatter_add,
     row_scatter_add_plain,
     row_scatter_set,
+    row_scatter_set_multi,
+    row_scatter_set_multi_plain,
     row_scatter_set_plain,
+    segment_size,
+    segment_sum,
 )
 from meepoembedding_tpu_torch.ops import dedup
 from meepoembedding_tpu_torch.table import hashing, table_ops
@@ -270,6 +289,54 @@ def check_kernels(rows_log2: int, seed: int) -> None:
              torch.randn((n, 1), device=dev, generator=g).to(torch.bfloat16))
     del vals, vb
     torch.cuda.empty_cache()
+    check_multi_set(g, dev)
+
+
+def check_multi_set(g, dev) -> None:
+    """row_scatter_set_multi against its plain version (one plain set a
+    plane) at K = 1, 4 and 8 planes: the train step's four bucket planes
+    (two tensors, two scalars), eight int32 and f32 planes of mixed values,
+    and whole rows of three [R, 32] planes with a scalar 0, as a restore
+    batch sets the values and full-dim planes. Bit-exact."""
+    nb, n = 1 << 20, 1 << 16
+
+    def case(name, planes, idx, values):
+        want = [p.clone() for p in planes]
+        row_scatter_set_multi(planes, idx, values)
+        row_scatter_set_multi_plain(want, idx, values)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(planes, want))
+        log(f"check row_scatter_set_multi {name}: K={len(planes)} planes "
+            f"{tuple(planes[0].shape)}, n={n}: {'bit-exact' if exact else 'MISMATCH'}")
+        if not exact:
+            raise AssertionError(f"row_scatter_set_multi {name} disagrees with its plain version")
+
+    def ints(shape):
+        return torch.randint(-(2**31), 2**31 - 1, shape, device=dev, dtype=torch.int32,
+                             generator=g)
+
+    idx = _onehot_dup_elements(nb, n, 128, 8, g, dev)
+    planes = [ints((nb, 128)) for _ in range(8)]
+    for p in planes[4:]:
+        p.view(torch.float32).normal_(generator=g)
+    flat = [p.view(-1, 1) if i < 4 else p.view(torch.float32).view(-1, 1)
+            for i, p in enumerate(planes)]
+    case("one plane, tensor", flat[:1], idx, [ints((n, 1))])
+    case("train step (key_hi, key_lo, freq = 1, last = step)", flat[:4], idx,
+         [ints((n, 1)), ints((n, 1)), 1, 123456])
+    case("int32 and f32, scalars and tensors", flat, idx,
+         [ints((n, 1)), -7, ints((n, 1)), 2**31 + 5, torch.randn((n, 1), device=dev,
+                                                                  generator=g),
+          0.1, -0.0, torch.randn((n, 1), device=dev, generator=g)])
+    del planes, flat
+    rows = [torch.randn((nb, 32), device=dev, generator=g) for _ in range(3)]
+    idx = (torch.randperm(nb + 64, device=dev, generator=g)[:n] - 32).to(torch.int32)
+    case("whole rows (values, two full-dim planes = 0)", rows, idx,
+         [torch.randn((n, 32), device=dev, generator=g), 0, 0.0])
+    case("whole rows bf16", [r.to(torch.bfloat16) for r in rows[:2]], idx,
+         [torch.randn((n, 32), device=dev, generator=g).to(torch.bfloat16), 0.5])
+    del rows
+    torch.cuda.empty_cache()
 
 
 def order_bound(base, vrow, upd):
@@ -297,8 +364,9 @@ def within_order_bound(got, want, bound) -> float:
 
 
 def check_add_kernels(rows_log2: int, seed: int) -> None:
-    """row_scatter_add (K3) and row_merge_add (K1) against their plain
-    versions; raises unless bit-exact where the plain version is exact."""
+    """row_scatter_add (K3), row_merge_add (K1's unique-row add) and
+    segment_sum (K1's duplicate rows) against their plain versions; raises
+    unless bit-exact where the plain version is exact."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 7)
     R = 1 << rows_log2
@@ -353,27 +421,75 @@ def check_add_kernels(rows_log2: int, seed: int) -> None:
         row_merge_add_plain(want, urow, upd)
         torch.cuda.synchronize()
         exact(f"row_merge_add unique rows {tuple(base.shape)} {dtype}, n={n}", got, want)
-        # duplicate rows (the gradient segment sum: a Zipf head repeats ids
-        # hundreds of times), drops below 0 and at or beyond R
-        m = STEP_IDS
-        vrow = torch.randint(0, R, (m,), device=dev, generator=g)
-        hot = torch.randint(0, R, (16,), device=dev, generator=g)
-        pick = torch.rand((m,), device=dev, generator=g) < 0.4
-        vrow = torch.where(pick, hot[torch.randint(0, 16, (m,), device=dev, generator=g)], vrow)
-        vrow[::97] = -1
-        vrow[1::89] = R + 3
-        vrow = vrow.to(torch.int32)
-        upd = torch.randn((m, 32), device=dev, generator=g)
-        first, again, want = base.clone(), base.clone(), base.clone()
-        row_merge_add(first, vrow, upd)
-        row_merge_add(again, vrow, upd)
-        row_merge_add_plain(want, vrow, upd)
+        del base, got, want
+    # duplicate rows (the gradient segment sum: a Zipf head repeats ids
+    # hundreds of times) into an [R, 32] f32 output, drops below 0 and at or
+    # beyond R
+    m = STEP_IDS
+    vrow = torch.randint(0, R, (m,), device=dev, generator=g)
+    hot = torch.randint(0, R, (16,), device=dev, generator=g)
+    pick = torch.rand((m,), device=dev, generator=g) < 0.4
+    vrow = torch.where(pick, hot[torch.randint(0, 16, (m,), device=dev, generator=g)], vrow)
+    vrow[::97] = -1
+    vrow[1::89] = R + 3
+    vrow = vrow.to(torch.int32)
+    upd = torch.randn((m, 32), device=dev, generator=g)
+    first = segment_sum(upd, vrow, R)
+    again = segment_sum(upd, vrow, R)
+    zero = torch.zeros((R, 32), device=dev)
+    want = row_merge_add_plain(zero.clone(), vrow, upd)
+    torch.cuda.synchronize()
+    exact("segment_sum duplicate rows, call against call", first, again)
+    err = within_order_bound(first, want, order_bound(zero, vrow, upd))
+    log(f"check segment_sum duplicate rows [{m}, 32] -> [{R}, 32] f32: "
+        f"max |kernel - plain| {err} within the summation-order bound")
+    del first, again, zero, want
+    torch.cuda.empty_cache()
+
+
+def check_segment_sum(seed: int) -> None:
+    """segment_sum (K1's duplicate rows, summed from zero) on the dedup of
+    one train step's ids (4096 x 26, Zipf) with one id set at 5,000 more
+    positions: the same bits on two calls and when the wrapper sorts for
+    itself; runs of at most S updates (the kernel's segment size) bit-exact
+    against the input-order sum (the plain version on the CPU); every run
+    within the summation-order bound. Then with the unique capacity
+    overflowed (aliased ids share the last run, in id order): two calls
+    equal and within the bound."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    batch = next(iter(SyntheticStream(SyntheticConfig(batch_size=TRAIN_BATCH,
+                                                      seed=seed + 19)).batches(1)))
+    ids = torch.from_numpy(batch["ids"]).to(dev).reshape(-1)
+    n = ids.shape[0]
+    ids[torch.randperm(n, device=dev, generator=g)[:5000]] = ids[7].clone()
+    hi, lo = hashing.split_ids_t(ids)
+    grads = torch.randn((n, 32), device=dev, generator=g)
+    S = segment_size()
+    for size in (n, 20_000):
+        u = dedup.unique_pairs(hi, lo, size)
+        U, inv = u.hi.shape[0], u.inverse
+        want = row_merge_add_plain(torch.zeros((U, 32)), inv.cpu(), grads.cpu()).to(dev)
+        bound = order_bound(torch.zeros((U, 32), device=dev), inv, grads)
+        runs = torch.bincount(inv.long(), minlength=U)
+        got = segment_sum(grads, inv, U, u.order, u.sorted_ids)
+        again = segment_sum(grads, inv, U, u.order, u.sorted_ids)
         torch.cuda.synchronize()
-        exact(f"row_merge_add duplicate rows, launch against launch, {dtype}", first, again)
-        err = within_order_bound(first, want, order_bound(base, vrow, upd))
-        log(f"check row_merge_add duplicate rows {tuple(base.shape)} {dtype}, m={m}: "
-            f"max |kernel - plain| {err} within the summation-order bound")
-        del base, got, want, first, again
+        if not torch.equal(_bits(got), _bits(again)):
+            raise AssertionError("segment_sum: two calls gave different bits")
+        what = f"segment_sum S={S}, [{n}, 32] -> [{U}, 32], longest run {int(runs.max())}"
+        if size == n:
+            if not torch.equal(_bits(got), _bits(segment_sum(grads, inv, U))):
+                raise AssertionError(f"{what}: the dedup's sort and the wrapper's differ")
+            short = runs <= S
+            if not torch.equal(_bits(got[short]), _bits(want[short])):
+                raise AssertionError(f"{what}: runs of <= S updates differ from "
+                                     f"the input-order sum")
+            what += f": {int(short.sum())} rows of <= S updates bit-exact"
+        else:
+            what += " (unique capacity overflowed)"
+        err = within_order_bound(got, want, bound)
+        log(f"check {what}; max |kernel - plain| {err} within the order bound")
     torch.cuda.empty_cache()
 
 
@@ -481,7 +597,7 @@ def serve(args, dev, rng, card: str) -> dict:
     # fill toward the target live rows with table.assign, data made on the device
     g = torch.Generator(device=dev).manual_seed(args.seed + 1)
     B = 1 << 16
-    assigned = landed = 0
+    assigned = landed = calls = 0
     kept_ids, kept_rows = [], []
     at = launches()
     t0 = time.perf_counter()
@@ -493,6 +609,7 @@ def serve(args, dev, rng, card: str) -> dict:
         rows = (torch.rand((n, dim), device=dev, generator=g) - 0.5) * 0.1
         ok = table.assign(ids, rows)
         assigned += n
+        calls += 1
         landed += int(ok.sum())
         if len(kept_ids) < 8:  # rows to check reads against
             okt = torch.from_numpy(ok).to(dev)
@@ -506,6 +623,10 @@ def serve(args, dev, rng, card: str) -> dict:
         f"load {table.load_factor:.4f}; launches per batch: {delta(at, -(-assigned // B))}")
     if landed < 0.99 * assigned:
         raise AssertionError(f"only {landed} of {assigned} assigned rows landed (< 99%)")
+    sets = launches()["row_scatter_set"] - at["row_scatter_set"]
+    if dev.type == "cuda" and sets != 3 * calls:
+        raise AssertionError(f"assign launched row_scatter_set {sets} times in {calls} "
+                             f"batches, not 3 a batch (fresh keys, side planes, rows)")
     kept_ids = torch.cat(kept_ids)
     kept_rows = torch.cat(kept_rows)
 
@@ -642,7 +763,7 @@ def train(args, table, dev, card: str) -> dict:
         raise AssertionError(f"{diff['drops']} drops > 1% of {diff['inserts']} inserts")
     if diff["inserts"] == 0 or diff["hits"] == 0:
         raise AssertionError("the train phase must both insert and hit")
-    return {"trainer": tr, "spare": batches[warm + nsteps:]}
+    return {"trainer": tr, "spare": batches[warm + nsteps:], "steps": warm + nsteps}
 
 
 def profile_train(tr, batches) -> None:
@@ -741,6 +862,20 @@ def gather_entry(label, plane, idxs) -> dict:
     )
 
 
+def host_time(name: str, fn, calls: int = 200) -> None:
+    """Host time of one wrapper call: the mean of `calls` calls on the host
+    clock, with no synchronisation between them (a launch is timed by its
+    enqueue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    log(f"host {name}: {us:.2f} us a call")
+
+
 def log_timings(out) -> None:
     for name, e in out:
         log(f"timing {name} [{e['label']}] {e['shape']}: kernel {e['ms']:.4f} ms (device "
@@ -800,6 +935,8 @@ def time_kernels(svc, requests, seed: int) -> list:
                             upd=keys[:, None].contiguous(), rows=shard.values[pick]))
     set_idx = [x["slot"] for x in batches]
     kf, vals = shard.key_hi.view(-1, 1), shard.values
+    x0 = batches[0]
+    host_time("row_scatter_set one plane", lambda: row_scatter_set(kf, x0["slot"], x0["upd"]))
     out.append(("row_scatter_set", entry(
         "bucket-plane element set per restore batch",
         f"{tuple(kf.shape)} int32 (the {tuple(shard.key_hi.shape)} key plane), n={n}",
@@ -822,8 +959,103 @@ def time_kernels(svc, requests, seed: int) -> list:
             (n, spec.dim), device=dev, generator=g)),
         "row_set_kernel",
     )))
+
+    # the restore batch's grouped calls, as insert_rows makes them: the
+    # fresh keys (key_hi, key_lo), then the side planes (freq, last, accum;
+    # tensors on restore), then the rows (the whole-row set above); each
+    # writes back what the planes hold
+    def flat(p):
+        return p.view(-1, 1)
+
+    keys = (flat(shard.key_hi), flat(shard.key_lo))
+    side = (flat(shard.freq), flat(shard.last), flat(shard.opt_rowwise[0]))
+    groups = {}
+    for label, planes in (("fresh keys (key_hi, key_lo)", keys),
+                          ("side planes (freq, last, accum)", side)):
+        sets = [(x["slot"], x["slot64"], [p[x["slot64"]] for p in planes]) for x in batches]
+        groups[label] = (planes, sets)
+        out.append(("row_scatter_set", multi_set_entry(
+            f"restore batch: {label}", planes, sets, g)))
+    three = [(x, [(planes, sets[k]) for planes, sets in groups.values()])
+             for k, x in enumerate(batches)]
+
+    def three_calls(x, calls):
+        for planes, (idx, _, values) in calls:
+            row_scatter_set_multi(planes, idx, values)
+        row_scatter_set(vals, x["slot"], x["rows"])
+
+    def three_plain(x, calls):
+        for planes, (idx, _, values) in calls:
+            row_scatter_set_multi_plain(planes, idx, values)
+        row_scatter_set_plain(vals, x["slot"], x["rows"])
+
+    def six_library(x, calls):
+        for planes, (_, i64, values) in calls:
+            for p, v in zip(planes, values):
+                p.view(-1).index_put_((i64,), v.view(-1))
+        vals.index_put_((x["slot64"],), x["rows"])
+
+    out.append(("row_scatter_set", entry(
+        "restore batch: the three grouped calls (keys, side planes, rows)",
+        f"2 + 3 bucket planes (flat [{shard.key_hi.numel()}, 1]) and {tuple(vals.shape)} "
+        f"f32, n={n}",
+        4 * n * 3 + 5 * 2 * n * 4 + 2 * n * spec.dim * 4,
+        [lambda x=x, c=c: three_calls(x, c) for x, c in three],
+        [lambda x=x, c=c: three_plain(x, c) for x, c in three],
+        [lambda x=x, c=c: six_library(x, c) for x, c in three],
+        # the three calls' own checks, each measured above on these batches
+        lambda: max(t["max_abs_err"] for _, t in out[-3:]),
+        "row_set_kernel",
+    )))
     log_timings(out)
     return out
+
+
+def multi_set_entry(label, planes, sets, g) -> dict:
+    """The timing record of one row_scatter_set_multi call on flat [N, 1]
+    views of 4-byte planes, over `sets` of (idx int32 [n] with -1 for rows
+    not written, the written rows' int64 slots, one value a plane: an [n, 1]
+    tensor or a scalar). The library time is one `index_put_` a plane. The
+    check writes new random tensor values into two copies of the planes,
+    one by the kernel and one by the plain version."""
+    n, T = sets[0][0].shape[0], sets[0][1].shape[0]
+    dev = planes[0].device
+    values0 = sets[0][2]
+    tensors = sum(isinstance(v, torch.Tensor) for v in values0)
+    ok = [(i >= 0).nonzero()[:, 0] for i, _, _ in sets]
+
+    def lib_values(values, rows):
+        return [v[rows].view(-1) if isinstance(v, torch.Tensor)
+                else torch.tensor(v, dtype=p.dtype, device=dev) for p, v in zip(planes, values)]
+
+    lib = [(i64, lib_values(values, rows)) for (_, i64, values), rows in zip(sets, ok)]
+
+    def library(i64, values):
+        for p, v in zip(planes, values):
+            p.view(-1).index_put_((i64,), v)
+
+    def check():
+        got, want = [p.clone() for p in planes], [p.clone() for p in planes]
+        for idx, _, values in sets[:2]:
+            new = [(torch.randint(-(2**31), 2**31 - 1, (n, 1), device=dev, dtype=torch.int32,
+                                  generator=g).view(p.dtype) if isinstance(v, torch.Tensor) else v)
+                   for p, v in zip(planes, values)]
+            row_scatter_set_multi(got, idx, new)
+            row_scatter_set_multi_plain(want, idx, new)
+        return max(max_abs_err("row_scatter_set_multi", a, b) for a, b in zip(got, want))
+
+    return entry(
+        label,
+        f"K={len(planes)} flat [{planes[0].shape[0]}, 1] planes "
+        f"({', '.join(str(p.dtype).replace('torch.', '') for p in planes)}; {tensors} tensor "
+        f"values, {len(planes) - tensors} scalars), n={n} ({T} written)",
+        4 * n + (2 * tensors + (len(planes) - tensors)) * 4 * T,
+        [lambda x=x: row_scatter_set_multi(planes, x[0], x[2]) for x in sets],
+        [lambda x=x: row_scatter_set_multi_plain(planes, x[0], x[2]) for x in sets],
+        [lambda x=x: library(*x) for x in lib],
+        check,
+        "row_set_kernel",
+    )
 
 
 def time_train_kernels(tr, batch, seed: int) -> list:
@@ -847,6 +1079,11 @@ def time_train_kernels(tr, batch, seed: int) -> list:
     pr = table_ops.probe(spec, shard, uniq.hi, uniq.lo, uniq.valid)
     ok = pr.found
     T, C, W = int(ok.sum()), spec.capacity, spec.dim
+    # the contract of the unique-row add: the step's valid slots are unique
+    distinct = int(torch.unique(pr.slot[ok]).shape[0])
+    log(f"check the step's slots: {T} valid, {distinct} distinct")
+    if distinct != T:
+        raise AssertionError("the train step's valid slots are not unique")
     shifts = [((pr.slot.long() + k * 7919 * LANES) % C) for k in range(8)]
     vrows = [torch.where(ok, s, -1).to(torch.int32) for s in shifts]
     vrow64 = [s[ok] for s in shifts]
@@ -874,8 +1111,9 @@ def time_train_kernels(tr, batch, seed: int) -> list:
         [lambda v=v: vals.index_add_(0, v, zero_ok) for v in vrow64],
         lambda: merge_check(vals, vrows[:2], lambda: torch.randn(
             (n, W), device=dev, generator=g) * 1e-3),
-        "merge_add_kernel",
+        "add_unique",
     )))
+    host_time("row_merge_add unique rows", lambda: row_merge_add(vals, vrows[0], zero))
 
     # the gradient segment sum: n batch-order rows into [U, 32], duplicates
     U = uniq.hi.shape[0]
@@ -883,25 +1121,36 @@ def time_train_kernels(tr, batch, seed: int) -> list:
     grads = [torch.randn((n, W), device=dev, generator=g) * 1e-3 for _ in range(8)]
     runs = int(torch.unique(inv).shape[0])
 
+    order, sids = uniq.order, uniq.sorted_ids
+
     def seg_check():
-        got = dedup.segment_sum_grads(grads[0], inv, U)
-        again = dedup.segment_sum_grads(grads[0], inv, U)
+        got = dedup.segment_sum_grads(grads[0], inv, U, order, sids)
+        again = dedup.segment_sum_grads(grads[0], inv, U, order, sids)
         want = row_merge_add_plain(torch.zeros((U, W), device=dev), inv, grads[0])
         if not torch.equal(got, again):
-            raise AssertionError("row_merge_add: two launches gave different bits")
+            raise AssertionError("segment_sum: two calls gave different bits")
         return within_order_bound(got, want, order_bound(torch.zeros_like(got), inv, grads[0]))
 
+    # the inverse and the updates read, the runs' rows written
+    seg_bytes = 4 * n + 4 * W * n + 4 * W * runs
+    seg_fns = [lambda x=x: dedup.segment_sum_grads(x, inv, U, order, sids) for x in grads]
+    walk_ms = device_ms(seg_fns, "segment_walk")[1]
+    combine_ms = device_ms(seg_fns, "segment_combine")[1]
+    log(f"timing segment sum kernels: walk {walk_ms:.4f} ms, combine {combine_ms:.4f} ms")
     out.append(("row_merge_add", entry(
-        "gradient segment sum per step (duplicate rows)",
-        f"[{n}, {W}] f32 -> [{U}, {W}] f32 ({runs} distinct rows)",
-        4 * n + 4 * W * n + 4 * W * runs,
-        [lambda x=x: dedup.segment_sum_grads(x, inv, U) for x in grads],
+        f"gradient segment sum per step (duplicate rows, the dedup's sort, "
+        f"S={segment_size()})",
+        f"[{n}, {W}] f32 -> [{U}, {W}] f32 ({runs} distinct rows, longest run "
+        f"{int(torch.bincount(inv.long()).max())})",
+        seg_bytes,
+        seg_fns,
         [lambda x=x: row_merge_add_plain(torch.zeros((U, W), device=dev), inv, x)
          for x in grads],
         [lambda x=x: torch.zeros((U, W), device=dev).index_add_(0, inv64, x) for x in grads],
         seg_check,
-        "merge_add_kernel",
+        "segment_",
     )))
+    host_time("segment_sum", lambda: segment_sum(grads[0], inv, U, order, sids))
 
     # the rowwise accumulator read: one f32 element per unique slot of the
     # plane's flat view (4-byte rows), slots < 0 clamped as the step does
@@ -931,6 +1180,16 @@ def time_train_kernels(tr, batch, seed: int) -> list:
         add_check,
         "row_add_kernel",
     )))
+
+    # the step's multi-plane set (lookup_train: the fresh keys' key_hi,
+    # key_lo, freq = 1 and last = step) on copies of the four bucket planes,
+    # at the step's slots
+    planes = [p.clone().view(-1, 1) for p in (shard.key_hi, shard.key_lo, shard.freq, shard.last)]
+    uh, ul = uniq.hi[:, None].contiguous(), uniq.lo[:, None].contiguous()
+    sets = [(v, v64, [uh, ul, 1, tr.step]) for v, v64 in zip(vrows, vrow64)]
+    out.append(("row_scatter_set", multi_set_entry(
+        "train step: key_hi, key_lo, freq, last", planes, sets, g)))
+    del planes
     log_timings(out)
     return out
 
@@ -1004,6 +1263,7 @@ def main() -> int:
     t0 = time.perf_counter()
     check_kernels(CHECK_ROWS_LOG2, args.seed)
     check_add_kernels(CHECK_ROWS_LOG2, args.seed)
+    check_segment_sum(args.seed)
     check_train_parity(args.seed)
     log(f"kernels: checks passed in {time.perf_counter() - t0:.1f} s")
 
@@ -1022,10 +1282,19 @@ def main() -> int:
     t0 = time.perf_counter()
     tres = train(args, res["svc"].table, cuda, card)
     train_counts = launches()
-    log(f"train: path finished in {time.perf_counter() - t0:.1f} s; launches {train_counts}")
+    steps = tres["steps"]
+    log(f"train: path finished in {time.perf_counter() - t0:.1f} s; launches {train_counts}; "
+        f"per step: " + ", ".join(f"{k} {v / steps:.2f}" for k, v in train_counts.items()))
     for name, count in train_counts.items():
         if count <= 0:
             raise AssertionError(f"the training path never launched {name}")
+    # one multi-plane set (the fresh keys' key_hi, key_lo, freq, last) and
+    # three K1 launches (the unique-row values update; the segment sum's
+    # walk and combine pass) a step
+    for name, want in (("row_scatter_set", 1), ("row_merge_add", 3)):
+        if train_counts[name] != want * steps:
+            raise AssertionError(f"the train step launched {name} "
+                                 f"{train_counts[name] / steps:.2f} times, not {want}")
 
     profile_train(tres["trainer"], tres["spare"][:4])
     timings = time_kernels(res["svc"], res["requests"], args.seed)

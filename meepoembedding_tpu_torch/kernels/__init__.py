@@ -3,14 +3,18 @@
 Each wrapper dispatches by the device of the tensors it is given: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel (built at
 first use by `_build`) or the wrapper raises. There is no fallback from the
-kernel to the plain version. Each wrapper counts its launches in a plain
-integer attribute, `<wrapper>.launches`.
+kernel to the plain version. Each kernel source counts its launches in a
+plain integer attribute of its main wrapper, `<wrapper>.launches`
+(`segment_sum` counts its two kernels in `row_merge_add.launches`,
+`row_scatter_set_multi` in `row_scatter_set.launches`).
 """
 
 from meepoembedding_tpu_torch.kernels.row_gather import row_gather, row_gather_plain  # noqa: F401
 from meepoembedding_tpu_torch.kernels.row_merge_add import (  # noqa: F401
     row_merge_add,
     row_merge_add_plain,
+    segment_size,
+    segment_sum,
 )
 from meepoembedding_tpu_torch.kernels.row_scatter_add import (  # noqa: F401
     row_scatter_add,
@@ -18,5 +22,7 @@ from meepoembedding_tpu_torch.kernels.row_scatter_add import (  # noqa: F401
 )
 from meepoembedding_tpu_torch.kernels.row_scatter_set import (  # noqa: F401
     row_scatter_set,
+    row_scatter_set_multi,
+    row_scatter_set_multi_plain,
     row_scatter_set_plain,
 )

@@ -19,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 KERNELS = ("row_gather", "row_scatter_set", "row_scatter_add", "row_merge_add")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -97,3 +99,10 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.meepo_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} at launch: {msg}")
+
+
+def raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of `device` as an int, for a launch: what
+    `torch.cuda.current_stream(device).cuda_stream` gives, without building
+    the Stream object, which costs several us of host time a call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

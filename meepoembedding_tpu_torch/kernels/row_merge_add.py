@@ -1,26 +1,42 @@
-"""Row merge-add with duplicate rows, the port of the TPU kernel K1
-(`_kernel`, meepoembedding_tpu/table/stream_merge.py:61; entry
-`stream_merge_add` :524, dispatched by `values_scatter_add` :562).
+"""Row merge-add, the port of the TPU kernel K1 (`_kernel`,
+meepoembedding_tpu/table/stream_merge.py:61; entry `stream_merge_add` :524,
+dispatched by `values_scatter_add` :562).
 
     plane[vrow[j]] += upd[j]
 
-in place, for an [R, W] plane of f32 or bf16 and [m, W] f32 updates.
-Duplicate rows are summed; rows outside [0, R) are dropped. The sum runs in
-f32 from the old row through the updates in input order, and is rounded to
-the plane's type once. K1 cast the updates to the plane's type and added in
-that type, so on a bf16 plane the two may differ by one bf16 unit in the
-last place.
+for an [R, W] plane of f32 or bf16 and [m, W] f32 updates. Rows outside
+[0, R) are dropped. The sum runs in f32 from the old row through the
+updates in input order, and is rounded to the plane's type once. K1 cast
+the updates to the plane's type and added in that type, so on a bf16 plane
+the two may differ by one bf16 unit in the last place.
 
-The wrapper sorts the rows stably (`torch.sort`, as the JAX wrapper sorts
-outside its kernel); the kernel (`csrc/row_merge_add.cu`) gives each run of
-equal rows to one warp, which reads the row once, adds the run's updates in
-sorted order and writes it once. No atomics: the same inputs give the same
-bits on every launch. It is bound by device memory.
+Two wrappers share one plain version and one launch counter,
+`row_merge_add.launches`:
+
+- `row_merge_add(plane, vrow, upd)` adds in place, for rows that the caller
+  guarantees unique among those in [0, R): every values-plane update (one
+  slot per unique id). There is no sort: one launch adds each valid row
+  once, one thread per 16-byte vector. Duplicates would race on the card,
+  so the contract is the caller's to keep.
+- `segment_sum(upd, vrow, num_rows, order, sorted_rows)` sums duplicates: a
+  new zeroed [num_rows, W] f32 output with the updates summed into it, the
+  backward of a gather by `vrow`. The caller may pass the stable sort it
+  already has (`sorted_rows` = vrow[order], non-decreasing), as the dedup
+  does; else the wrapper sorts. A memset zeroes the output, a walk in fixed
+  segments of `segment_size()` positions (one warp each) sums each run of at
+  most that many updates in input order, and a combine pass adds the
+  per-segment partials of longer runs in segment order: two kernels, counted
+  as two launches. No atomics: the same inputs give the same bits on every
+  launch.
+
+Both kernels (`csrc/row_merge_add.cu`) are bound by device memory.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
@@ -31,7 +47,7 @@ def row_merge_add_plain(plane: torch.Tensor, vrow: torch.Tensor,
                         upd: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: the touched rows gathered to f32, the
     updates added with `index_add_` in f32, the sums cast and written back.
-    On the CPU `index_add_` adds in input order, as the kernel does; on the
+    On the CPU `index_add_` adds in input order, as the kernels do; on the
     card it adds duplicates with atomics, in no fixed order."""
     v = vrow.long()
     (j,) = ((v >= 0) & (v < plane.shape[0])).nonzero(as_tuple=True)
@@ -42,15 +58,30 @@ def row_merge_add_plain(plane: torch.Tensor, vrow: torch.Tensor,
     return plane
 
 
-def _lib():
-    lib = _build.load("row_merge_add")
-    fn = lib.meepo_row_merge_add
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+_fns: dict = {}
+
+
+def _fn(name: str, argtypes):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load("row_merge_add"), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+        _fns[name] = fn
+    return fn
+
+
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_UNIQUE_ARGS = [_P, _P, _P, _L, _L, _L, _I, _P]
+_SUM_ARGS = [_P, _P, _P, _P, _P, _L, _L, _L, _P]
+
+
+@functools.cache
+def segment_size() -> int:
+    """The positions a warp of the segment sum walks, a constant of the
+    kernel source (builds and loads it): runs of at most this many updates
+    are summed exactly in input order."""
+    return _fn("meepo_segment_size", [])()
 
 
 def _validate(plane, vrow, upd):
@@ -68,35 +99,84 @@ def _validate(plane, vrow, upd):
         )
 
 
-def row_merge_add(plane: torch.Tensor, vrow: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
-    """Add upd[j] to plane[vrow[j]] in place, summing duplicates; returns
-    `plane`. CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
-    _validate(plane, vrow, upd)
-    tensors = (plane, vrow, upd)
-    if all(t.device.type == "cpu" for t in tensors):
-        return row_merge_add_plain(plane, vrow, upd)
-    if plane.device.type != "cuda" or any(t.device != plane.device for t in tensors):
-        raise ValueError(
-            "row_merge_add: plane, vrow and upd must lie on one CUDA device "
-            "(or all on the CPU)"
-        )
+def _on_card(tensors) -> bool:
+    """False for tensors that all lie on the CPU, True for contiguous tensors
+    on one CUDA device; raises for anything else."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("row_merge_add: the tensors must lie on one CUDA device "
+                         "(or all on the CPU)")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"row_merge_add: tensors on {dev}, not a CUDA device or the CPU")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("row_merge_add: tensors must be contiguous")
+    return True
+
+
+def row_merge_add(plane: torch.Tensor, vrow: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
+    """Add upd[j] to plane[vrow[j]] in place; returns `plane`. The rows in
+    [0, R) must be unique (on the card duplicates race; `segment_sum` sums
+    them). CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    _validate(plane, vrow, upd)
+    if not _on_card((plane, vrow, upd)):
+        return row_merge_add_plain(plane, vrow, upd)
     m = vrow.shape[0]
     if m == 0:
         return plane
-    # rows to drop sort to either end of the keys, where the kernel skips them
-    skey, order = torch.sort(vrow, stable=True)
-    lib = _lib()
-    stream = torch.cuda.current_stream(plane.device).cuda_stream
-    err = lib.meepo_row_merge_add(
-        plane.data_ptr(), skey.data_ptr(), order.data_ptr(), upd.data_ptr(), m,
-        plane.shape[0], plane.shape[1], int(plane.dtype == torch.bfloat16), stream,
+    err = _fn("meepo_row_add_unique", _UNIQUE_ARGS)(
+        plane.data_ptr(), vrow.data_ptr(), upd.data_ptr(), m, plane.shape[0],
+        plane.shape[1], int(plane.dtype == torch.bfloat16), _build.raw_stream(plane.device),
     )
-    _build.check(lib, err, "row_merge_add")
+    if err:
+        _build.check(_build.load("row_merge_add"), err, "row_merge_add")
     row_merge_add.launches += 1
     return plane
+
+
+def segment_sum(upd: torch.Tensor, vrow: torch.Tensor, num_rows: int,
+                order: Optional[torch.Tensor] = None,
+                sorted_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[m, W] f32 updates -> [num_rows, W] f32 with out[vrow[j]] += upd[j]
+    from zero; rows outside [0, num_rows) are dropped. `order` (int64 [m])
+    and `sorted_rows` (int32 [m], vrow[order], non-decreasing) are the
+    rows' stable sort where the caller has it; the wrapper sorts when they
+    are not given. CPU tensors take the plain version (in input order, which
+    needs no sort); CUDA tensors launch the kernels."""
+    m, width = vrow.shape[0], upd.shape[1]
+    if (order is None) != (sorted_rows is None):
+        raise ValueError("segment_sum: pass both order and sorted_rows, or neither")
+    given = () if order is None else (order, sorted_rows)
+    if given and (order.dtype != torch.int64 or sorted_rows.dtype != torch.int32
+                  or order.shape != vrow.shape or sorted_rows.shape != vrow.shape):
+        raise ValueError(f"segment_sum: order must be int64 and sorted_rows int32, both "
+                         f"[{vrow.shape[0]}]; got {order.dtype} {tuple(order.shape)} and "
+                         f"{sorted_rows.dtype} {tuple(sorted_rows.shape)}")
+    if not _on_card((vrow, upd, *given)):
+        out = torch.zeros((num_rows, width), dtype=torch.float32)
+        _validate(out, vrow, upd)
+        return row_merge_add_plain(out, vrow, upd)
+    # one allocation: the output, then the kernels' scratch (two partials a
+    # segment); the entry zeroes the output with a memset
+    out_len = num_rows * width
+    buf = torch.empty(out_len + 2 * -(-m // segment_size()) * width, dtype=torch.float32,
+                      device=upd.device)
+    out = buf[:out_len].view(num_rows, width)
+    _validate(out, vrow, upd)
+    if m == 0:
+        return out.zero_()
+    if order is None:
+        sorted_rows, order = torch.sort(vrow, stable=True)
+    err = _fn("meepo_segment_sum", _SUM_ARGS)(
+        out.data_ptr(), sorted_rows.data_ptr(), order.data_ptr(), upd.data_ptr(),
+        out.data_ptr() + 4 * out_len, m, num_rows, width, _build.raw_stream(upd.device),
+    )
+    if err:
+        _build.check(_build.load("row_merge_add"), err, "segment_sum")
+    row_merge_add.launches += 2  # the walk and the combine pass
+    return out
 
 
 row_merge_add.launches = 0

@@ -13,18 +13,23 @@ sort-based compaction) are plain `cumsum` and a scatter here, with no
 host synchronisation.
 
 The backward of the gather by `inverse` is a segment sum of the
-per-occurrence gradients into the unique rows: the K1 merge-add kernel
-(`kernels.row_merge_add`) into a zeroed [U, dim] plane, which sums each
-unique row's gradients in input order, the same bits on every launch.
+per-occurrence gradients into the unique rows: K1's `kernels.segment_sum`
+into a zeroed [U, dim] plane, the same bits on every launch. It needs the ids sorted by unique row, which `unique_pairs` has
+already computed: it returns its stable permutation `order` and the sorted
+run ids `sorted_ids`, and `GatherRows` hands them to the backward, so the
+training step sorts once. The plane is zeroed by a memset before the kernel
+writes the runs' sums: the rows past the unique count (most of a [U, dim]
+plane padded to the batch) must read zero, and a memset writes them at the
+copy rate.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from meepoembedding_tpu_torch.kernels import row_gather, row_merge_add
+from meepoembedding_tpu_torch.kernels import row_gather, segment_sum
 from meepoembedding_tpu_torch.table import hashing
 
 
@@ -34,6 +39,9 @@ class Unique(NamedTuple):
     inverse: torch.Tensor  # i32 [n] position of each input id in (hi, lo)
     valid: torch.Tensor  # bool [U] slot holds a real unique id
     count: torch.Tensor  # i32 scalar: number of uniques
+    # not in the reference: the dedup's own stable sort, for the backward
+    order: torch.Tensor  # i64 [n] input position of each sorted position
+    sorted_ids: torch.Tensor  # i32 [n] inverse[order], non-decreasing
 
 
 def _sort_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -51,7 +59,13 @@ def unique_pairs(hi: torch.Tensor, lo: torch.Tensor, size: int,
     `owner_major=S` makes `hashing.owner_of(id, S)` the primary sort key
     (invalid ids in group S), so the uniques come out grouped by owner shard.
     If the true unique count exceeds `size`, the overflow ids alias the last
-    slot, as in the reference."""
+    slot, as in the reference.
+
+    `order` and `sorted_ids` are the sort this computes: `inverse[order] ==
+    sorted_ids`, non-decreasing. Without overflow `order` is the stable sort
+    of `inverse` (with `owner_major` too: equal ids share an owner). With
+    overflow the aliased ids share the last run in id order, not in input
+    order: still a fixed order."""
     n = hi.shape[0]
     key = _sort_key(hi, lo)
     _, order = torch.sort(key, stable=True)
@@ -82,28 +96,35 @@ def unique_pairs(hi: torch.Tensor, lo: torch.Tensor, size: int,
     ul = torch.where(keep, cl[:size], hashing.EMPTY_LO)
     valid = hashing.is_valid(uh, ul)
     return Unique(hi=uh, lo=ul, inverse=inverse, valid=valid,
-                  count=valid.sum().to(torch.int32))
+                  count=valid.sum().to(torch.int32), order=order, sorted_ids=gid)
 
 
-def segment_sum_grads(grads: torch.Tensor, inverse: torch.Tensor, num_unique: int) -> torch.Tensor:
+def segment_sum_grads(grads: torch.Tensor, inverse: torch.Tensor, num_unique: int,
+                      order: Optional[torch.Tensor] = None,
+                      sorted_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[n, dim] per-occurrence grads -> [U, dim] f32 per-unique-id grads.
-    Entries of `inverse` outside [0, U) are dropped."""
-    out = torch.zeros((num_unique, grads.shape[1]), dtype=torch.float32, device=grads.device)
-    return row_merge_add(out, inverse, grads.float().contiguous())
+    Entries of `inverse` outside [0, U) are dropped. `order` and
+    `sorted_ids` (from `unique_pairs`) spare the kernel its sort."""
+    return segment_sum(grads.float().contiguous(), inverse, num_unique,
+                       order=order, sorted_rows=sorted_ids)
 
 
 class GatherRows(torch.autograd.Function):
     """rows_u[inverse]: the unique rows expanded to batch order (K2), whose
     gradient is the segment sum of the batch-order gradients (K1). This is
-    how the model's gradient reaches the unique rows of a training step."""
+    how the model's gradient reaches the unique rows of a training step.
+    `order` and `sorted_ids` (the `Unique`'s) let the backward skip its
+    sort."""
 
     @staticmethod
-    def forward(ctx, rows_u: torch.Tensor, inverse: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(inverse)
+    def forward(ctx, rows_u: torch.Tensor, inverse: torch.Tensor,
+                order: Optional[torch.Tensor] = None,
+                sorted_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx.save_for_backward(inverse, *(() if order is None else (order, sorted_ids)))
         ctx.num_unique = rows_u.shape[0]
         return row_gather(rows_u.contiguous(), inverse)
 
     @staticmethod
     def backward(ctx, grad_out: torch.Tensor):
-        (inverse,) = ctx.saved_tensors
-        return segment_sum_grads(grad_out, inverse, ctx.num_unique), None
+        inverse, *sort = ctx.saved_tensors
+        return segment_sum_grads(grad_out, inverse, ctx.num_unique, *sort), None, None, None

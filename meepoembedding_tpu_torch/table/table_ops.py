@@ -15,10 +15,10 @@ the serving and training paths).
                      to the values plane.
 
 Every row gather goes through `kernels.row_gather`, every row set through
-`kernels.row_scatter_set`, every bucket-plane add through
-`kernels.row_scatter_add` and every values-plane add through
-`kernels.row_merge_add`; on CPU tensors those take their plain versions.
-Shards are updated in place.
+`kernels.row_scatter_set_multi` (the planes that share an index in one
+launch), every bucket-plane add through `kernels.row_scatter_add` and every
+values-plane add through `kernels.row_merge_add` on unique rows; on CPU
+tensors those take their plain versions. Shards are updated in place.
 
 The reference writes with `mode="drop"` scatters whose dropped entries carry
 the index `len`; PyTorch has no such mode, so the small [nb] count updates
@@ -30,6 +30,7 @@ and the lookup path never takes.
 
 from __future__ import annotations
 
+import numbers
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -39,7 +40,7 @@ from meepoembedding_tpu_torch.kernels import (
     row_gather,
     row_merge_add,
     row_scatter_add,
-    row_scatter_set,
+    row_scatter_set_multi,
 )
 from meepoembedding_tpu_torch.table import hashing
 from meepoembedding_tpu_torch.table.layout import (
@@ -200,20 +201,34 @@ def lookup_rows(shard: TableShard, slot: torch.Tensor) -> torch.Tensor:
     return rows.masked_fill_((slot < 0)[:, None], 0)
 
 
-def scatter_bucket_plane(plane: torch.Tensor, slot, val, enabled) -> None:
-    """plane[slot // 128, slot % 128] = val where enabled, in place, for a
-    [nb, 128] plane: one element set on its flat [nb * 128, 1] view
-    (enabled slots are unique)."""
-    val = torch.as_tensor(val, device=slot.device).to(plane.dtype).expand(slot.shape)
-    idx = torch.where(enabled, slot, -1).to(torch.int32)
-    row_scatter_set(plane.view(-1, 1), idx, val.reshape(-1, 1).contiguous())
+def set_index(slot: torch.Tensor, enabled: torch.Tensor) -> torch.Tensor:
+    """The int32 index of a set: slot where enabled, else -1 (dropped)."""
+    return torch.where(enabled, slot, -1).to(torch.int32)
 
 
-def scatter_set_values(plane: torch.Tensor, slot, rows, enabled) -> None:
-    """plane[slot] = rows where enabled, in place: whole rows of a row-major
-    value plane."""
-    idx = torch.where(enabled, slot, -1).to(torch.int32)
-    row_scatter_set(plane, idx, rows.to(plane.dtype).contiguous())
+def scatter_bucket_planes(idx: torch.Tensor, writes: Sequence[tuple]) -> None:
+    """plane[slot // 128, slot % 128] = val for each (plane, val) of
+    `writes`, in place, where `idx` (from `set_index`) holds the slot: one
+    element set on each [nb, 128] plane's flat [nb * 128, 1] view, all the
+    planes in one launch (enabled slots are unique). `val` is a Python
+    number, whose bits the kernel takes, or a tensor of [n] values."""
+    n = idx.shape[0]
+    row_scatter_set_multi(
+        [p.view(-1, 1) for p, _ in writes], idx,
+        [v if isinstance(v, numbers.Number) else
+         torch.as_tensor(v, device=idx.device).to(p.dtype).expand(n).reshape(n, 1).contiguous()
+         for p, v in writes])
+
+
+def scatter_set_values(idx: torch.Tensor, writes: Sequence[tuple]) -> None:
+    """plane[slot] = rows for each (plane, rows) of `writes`, in place,
+    where `idx` (from `set_index`) holds the slot: whole rows of row-major
+    value planes of one shape and type, in one launch. `rows` is an
+    [n, dim] tensor, or a Python number for every row."""
+    row_scatter_set_multi(
+        [p for p, _ in writes], idx,
+        [v if isinstance(v, numbers.Number) else v.to(p.dtype).contiguous()
+         for p, v in writes])
 
 
 def gather_bucket_plane(plane: torch.Tensor, slot) -> torch.Tensor:
@@ -235,15 +250,21 @@ def scatter_add_bucket_plane(plane: torch.Tensor, slot, val, enabled) -> None:
 def scatter_add_values(plane: torch.Tensor, slot, rows, enabled) -> None:
     """plane[slot] += rows where enabled, in place, for the row-major values
     plane or a full-dim optimizer plane like it: whole rows, summed in f32
-    and rounded once (the reference's `values_scatter_add`)."""
-    idx = torch.where(enabled, slot, -1).to(torch.int32)
-    row_merge_add(plane, idx, rows.float().contiguous())
+    and rounded once (the reference's `values_scatter_add`).
+
+    The enabled slots must be unique: `row_merge_add` is the unique-row
+    add, where duplicates would race. Every caller meets
+    this. Its slots are one per unique id of a `unique_pairs` dedup, from
+    `lookup_train` (or `probe` and `plan_insert`): two distinct keys never
+    share a slot, and `plan_insert` gives each admitted key a free lane of
+    its own, never one that is taken."""
+    row_merge_add(plane, set_index(slot, enabled), rows.float().contiguous())
 
 
 def touch(shard: TableShard, slot, enabled, step: int) -> None:
     """Record hits in place: freq += 1, last = step."""
     scatter_add_bucket_plane(shard.freq, slot, 1, enabled)
-    scatter_bucket_plane(shard.last, slot, step, enabled)
+    scatter_bucket_planes(set_index(slot, enabled), [(shard.last, step)])
 
 
 def cms_admit(spec: TableSpec, cms: torch.Tensor, uh, ul, miss) -> torch.Tensor:
@@ -300,10 +321,8 @@ def lookup_train(spec: TableSpec, shard: TableShard, uh, ul, valid, step: int) -
     rows_u = torch.where(fresh[:, None], init, rows).float()
     rows_u.masked_fill_((slot < 0)[:, None], 0.0)
 
-    scatter_bucket_plane(shard.key_hi, slot, uh, fresh)
-    scatter_bucket_plane(shard.key_lo, slot, ul, fresh)
-    scatter_bucket_plane(shard.freq, slot, 1, fresh)
-    scatter_bucket_plane(shard.last, slot, step, fresh)
+    scatter_bucket_planes(set_index(slot, fresh), [
+        (shard.key_hi, uh), (shard.key_lo, ul), (shard.freq, 1), (shard.last, step)])
     if spec.policy.needs_scores:
         touch(shard, slot, pr.found, step)
 
@@ -331,17 +350,19 @@ def insert_rows(
     ok = valid & (slot >= 0)
     fresh = ok & ~pr.found
 
-    scatter_bucket_plane(shard.key_hi, slot, hi, fresh)
-    scatter_bucket_plane(shard.key_lo, slot, lo, fresh)
-    scatter_set_values(shard.values, slot, rows, ok)
-    scatter_bucket_plane(shard.freq, slot, 1 if freq is None else freq, ok)
-    scatter_bucket_plane(shard.last, slot, step if last is None else last, ok)
+    # one launch for each group of planes that share a mask and a view: the
+    # fresh keys, the side planes, the rows
+    scatter_bucket_planes(set_index(slot, fresh), [(shard.key_hi, hi), (shard.key_lo, lo)])
+    ok_idx = set_index(slot, ok)
+    side = [(shard.freq, 1 if freq is None else freq),
+            (shard.last, step if last is None else last)]
     if shard.opt_rowwise:
         a = spec.optimizer.initial_accumulator if accum is None else accum
-        scatter_bucket_plane(shard.opt_rowwise[0], slot, a, ok)
-    for j, plane in enumerate(shard.opt_fulldim):
-        scatter_set_values(plane, slot, torch.zeros_like(rows) if fulldim is None
-                           else fulldim[j], ok)
+        side.append((shard.opt_rowwise[0], a))
+    scatter_bucket_planes(ok_idx, side)
+    scatter_set_values(ok_idx, [(shard.values, rows)] + [
+        (plane, 0 if fulldim is None else fulldim[j])
+        for j, plane in enumerate(shard.opt_fulldim)])
     shard.cnt.copy_(plan.cnt)
     shard.ovf.copy_(plan.ovf)
     shard.counters[INSERTS] += fresh.sum().to(torch.int32)

@@ -3,10 +3,11 @@
 One step: dedup the batch's ids -> `table_ops.lookup_train` (probe,
 admission, insert planning, fresh keys' side-plane writes; the rows of the
 unique ids, fresh ones at their init) -> the rows in batch order through
-`dedup.GatherRows` (K2 forward, K1 segment sum backward) -> DLRM forward and
-BCE loss -> backward -> the sparse update (`optim.apply_sparse_grads_ctx`:
-the values plane receives init + optimizer delta in one K1 launch, the
-rowwise accumulator one K3 launch) -> dense grad clip, LR schedule and the
+`dedup.GatherRows` (K2 forward; K1 segment sum backward, on the dedup's own
+sort) -> DLRM forward and BCE loss -> backward -> the sparse update
+(`optim.apply_sparse_grads_ctx`: the values plane receives init + optimizer
+delta in one unique-row K1 launch, the rowwise accumulator one K3 launch)
+-> dense grad clip, LR schedule and the
 reference's Adam. The table is updated in place. The step syncs with the
 host once per insert-planning round (`table_ops.plan_insert` stops when no
 key is pending) and once more to read the loss.
@@ -106,7 +107,7 @@ class Trainer:
         shape, dense, label, uniq, bag_valid = self._inputs(batch)
         ctx = table_ops.lookup_train(spec, self.shard, uniq.hi, uniq.lo, uniq.valid, self.step)
         rows_u = ctx.rows_u.detach().requires_grad_(True)
-        flat = dedup.GatherRows.apply(rows_u, uniq.inverse)
+        flat = dedup.GatherRows.apply(rows_u, uniq.inverse, uniq.order, uniq.sorted_ids)
         emb = model_inputs(self.model, flat, shape, bag_valid, spec.dim, self.model_cfg.combiner)
         loss, logits = model_loss(self.model, dense, emb, bag_valid, label)
         g_rows, *g_dense = torch.autograd.grad(loss, [rows_u, *self.params])
@@ -130,7 +131,8 @@ class Trainer:
         shape, dense, label, uniq, bag_valid = self._inputs(batch)
         pr = table_ops.probe(spec, self.shard, uniq.hi, uniq.lo, uniq.valid)
         rows = table_ops.lookup_rows(self.shard, torch.where(pr.found, pr.slot, -1))
-        flat = dedup.GatherRows.apply(rows.float(), uniq.inverse)
+        flat = dedup.GatherRows.apply(rows.float(), uniq.inverse, uniq.order,
+                                      uniq.sorted_ids)
         emb = model_inputs(self.model, flat, shape, bag_valid, spec.dim, self.model_cfg.combiner)
         loss, logits = model_loss(self.model, dense, emb, bag_valid, label)
         return {"loss": float(loss), "logits": logits}

@@ -19,7 +19,11 @@ from meepoembedding_tpu_torch.kernels import (
     row_scatter_add,
     row_scatter_add_plain,
     row_scatter_set,
+    row_scatter_set_multi,
+    row_scatter_set_multi_plain,
     row_scatter_set_plain,
+    segment_size,
+    segment_sum,
 )
 
 torch.set_num_threads(1)
@@ -161,12 +165,13 @@ def assert_within_order_bound(got, want, bound):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("width", [8, 32, 40, 256])
+@pytest.mark.parametrize("width", [3, 8, 32, 40, 128, 256])
 def test_row_merge_add_matches_plain(dtype, width):
-    """Unique rows: bit-exact. Duplicate rows: the plain version adds them
-    with atomics in no fixed order, so within the bound of two summation
-    orders (`_order_bound`), and the kernel gives the same bits on two
-    launches."""
+    """Unique rows (the unique-row add, no sort), rows below 0 and at or
+    beyond R dropped: bit-exact, one launch. Duplicate rows go to the
+    segment sum, from zero into f32: the plain version adds them with
+    atomics in no fixed order, so within the bound of two summation orders
+    (`_order_bound`), and the kernels give the same bits on two calls."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(width)
     R, m = 1 << 14, 30_000
@@ -183,13 +188,13 @@ def test_row_merge_add_matches_plain(dtype, width):
     assert torch.equal(_bits(kernel), _bits(plain))
 
     vrow = _dup_rows(R, m, g, dev)
-    first, again, plain = base.clone(), base.clone(), base.clone()
-    row_merge_add(first, vrow, upd)
-    row_merge_add(again, vrow, upd)
-    row_merge_add_plain(plain, vrow, upd)
+    first = segment_sum(upd, vrow, R)
+    again = segment_sum(upd, vrow, R)
+    zero = torch.zeros((R, width), device=dev)
+    plain = row_merge_add_plain(zero.clone(), vrow, upd)
     torch.cuda.synchronize()
     assert torch.equal(_bits(first), _bits(again))
-    assert_within_order_bound(first, plain, _order_bound(base, vrow, upd))
+    assert_within_order_bound(first, plain, _order_bound(zero, vrow, upd))
 
 
 @pytest.mark.gpu
@@ -220,3 +225,86 @@ def test_add_wrappers_refuse_mixed_devices():
         row_scatter_add(plane, torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4))
     with pytest.raises(ValueError):
         row_merge_add(plane, torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4))
+
+
+@pytest.mark.gpu
+def test_new_wrappers_refuse_mixed_devices():
+    dev = _cuda()
+    plane = torch.zeros((8, 4), device=dev)
+    idx = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        row_merge_add(plane, idx.cpu(), torch.zeros(2, 4, device=dev))
+    with pytest.raises(ValueError):
+        segment_sum(torch.zeros(2, 4, device=dev), idx.cpu(), 8)
+    with pytest.raises(ValueError):
+        segment_sum(torch.zeros(2, 4, device=dev), idx, 8, torch.zeros(2, dtype=torch.int64),
+                    idx)
+    with pytest.raises(ValueError):
+        row_scatter_set_multi([plane, plane.cpu()], idx, [1, 2])
+    with pytest.raises(ValueError):
+        row_scatter_set_multi([plane], idx, [torch.zeros(2, 4)])
+
+
+def _runs(counts, g, dev):
+    """Row ids in a random order, row r repeated counts[r] times."""
+    rows = torch.repeat_interleave(torch.arange(len(counts), device=dev),
+                                   torch.tensor(counts, device=dev))
+    return rows[torch.randperm(rows.shape[0], device=dev, generator=g)].to(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sorted_given", [True, False])
+def test_segment_sum_short_runs_exact_long_runs_bounded(sorted_given):
+    """Runs of 1 to S updates (S = segment_size()) give exactly the
+    input-order sum (the plain version on the CPU); runs of S + 1 to 5,000
+    stay within the summation-order bound; two calls give the same bits."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    S = segment_size()
+    counts = [1 + (r * 7) % S for r in range(3000)]
+    counts += [S + 1, 2 * S - 1, 2 * S, 3 * S + 5, 777, 5000]
+    vrow = _runs(counts, g, dev)
+    upd = torch.randn((vrow.shape[0], 32), device=dev, generator=g)
+    U = len(counts) + 10  # rows no run reaches read zero
+    sort = {}
+    if sorted_given:
+        sorted_rows, order = torch.sort(vrow, stable=True)
+        sort = dict(order=order, sorted_rows=sorted_rows)
+    before = row_merge_add.launches
+    first = segment_sum(upd, vrow, U, **sort)
+    again = segment_sum(upd, vrow, U, **sort)
+    torch.cuda.synchronize()
+    assert row_merge_add.launches == before + 4  # two kernels a call
+    assert torch.equal(_bits(first), _bits(again))
+    want = row_merge_add_plain(torch.zeros((U, 32)), vrow.cpu(), upd.cpu())
+    short = torch.zeros(U, dtype=torch.bool)
+    short[:len(counts)] = torch.tensor(counts) <= S
+    short[len(counts):] = True
+    got = first.cpu()
+    assert torch.equal(_bits(got[short]), _bits(want[short]))
+    assert_within_order_bound(got, want, _order_bound(torch.zeros((U, 32)), vrow.cpu(),
+                                                      upd.cpu()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_row_scatter_set_multi_matches_plain(k):
+    """K planes of one shape, int32 and f32, tensor and scalar values, on
+    the flat view of [R, 128] planes: bit-exact, one launch."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(k)
+    R, n = 1 << 12, 20_000
+    planes = [_random_plane((R, 128), torch.int32 if p % 2 == 0 else torch.float32, g, dev)
+              .view(-1, 1) for p in range(k)]
+    idx = _onehot_dup_elements(R, n, 128, g, dev)
+    scalars = [7, -0.25, 2**31 + 3, 1e30]
+    values = [_random_plane((idx.shape[0], 1), p.dtype, g, dev) if j % 3 == 0
+              else scalars[j % 4] for j, p in enumerate(planes)]
+    want = [p.clone() for p in planes]
+    before = row_scatter_set.launches
+    row_scatter_set_multi(planes, idx, values)
+    torch.cuda.synchronize()
+    assert row_scatter_set.launches == before + 1
+    row_scatter_set_multi_plain(want, idx, values)
+    for got, exp in zip(planes, want):
+        assert torch.equal(_bits(got), _bits(exp))

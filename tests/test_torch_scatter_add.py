@@ -5,7 +5,9 @@ against the Pallas kernels in interpret mode:
 
 - `row_scatter_add` (K3, `pallas_ops.row_scatter_add`): unique rows, int32
   and f32, rows below 0 dropped. Exact: one add per element.
-- `row_merge_add` (K1, `stream_merge.stream_merge_add`) at [8192, 128], the
+- `row_merge_add_plain`, the plain version of K1's two wrappers (the
+  unique-row add and the segment sum), against
+  `stream_merge.stream_merge_add` at [8192, 128], the
   smallest plane the reference sends through its kernel: duplicate rows,
   rows below 0 and at or beyond R dropped, f32 and bf16 planes. The
   reference sums a row's updates in a one-hot matmul and, on a bf16 plane,
@@ -27,7 +29,7 @@ import torch
 
 from meepoembedding_tpu.table import pallas_ops
 from meepoembedding_tpu.table.stream_merge import BLOCKR, stream_merge_add
-from meepoembedding_tpu_torch.kernels import row_merge_add, row_scatter_add
+from meepoembedding_tpu_torch.kernels import row_merge_add_plain, row_scatter_add
 
 torch.set_num_threads(1)
 
@@ -112,9 +114,7 @@ def test_row_merge_add_plain_matches_stream_merge_add(dtype):
     want = stream_merge_add(jnp.asarray(plane), jnp.asarray(vrow), jnp.asarray(upd),
                             interpret=True)
     got = _to_torch(plane)
-    before = row_merge_add.launches
-    row_merge_add(got, torch.from_numpy(vrow), torch.from_numpy(upd))
-    assert row_merge_add.launches == before
+    row_merge_add_plain(got, torch.from_numpy(vrow), torch.from_numpy(upd))
     ok = (vrow >= 0) & (vrow < plane.shape[0])
     absum = np.abs(_to_f32(plane))
     np.add.at(absum, vrow[ok], np.abs(upd[ok]))
@@ -142,11 +142,11 @@ def test_row_merge_add_plain_sums_in_input_order():
         if 0 <= r < 4:
             want[r] = want[r] + upd[j]
     got = torch.from_numpy(plane.copy())
-    row_merge_add(got, torch.from_numpy(vrow), torch.from_numpy(upd))
+    row_merge_add_plain(got, torch.from_numpy(vrow), torch.from_numpy(upd))
     np.testing.assert_array_equal(got.numpy(), want)
     # on a bf16 plane: the f32 sum rounded once
     pb = torch.from_numpy(plane).to(torch.bfloat16)
-    row_merge_add(pb, torch.from_numpy(vrow), torch.from_numpy(upd))
+    row_merge_add_plain(pb, torch.from_numpy(vrow), torch.from_numpy(upd))
     wb = torch.from_numpy(plane).to(torch.bfloat16).float().numpy()
     for j, r in enumerate(vrow):
         if 0 <= r < 4:
