@@ -14,7 +14,10 @@ Phases (any failure exits non-zero and prints no result line):
            bf16 as each kernel takes them; indices below 0 and at or beyond
            R; one-hot lanes of duplicate rows, set through the plane's flat
            view; 64-bit offsets (planes of 2^31 elements); the multi-plane
-           set at 1, 2, 3, 4 and 8 planes with scalar and tensor values.
+           set at 1, 2, 3, 4 and 8 planes with scalar and tensor values;
+           the multi-plane gather at 1-4 planes (int32 with f32, bf16;
+           widths 1, 32, 128, 256); the fetch-add (row_scatter_add with
+           `old`: plane and old bits, int32 wrap, f32, widths 1, 32, 128).
            Bit-exact, except the segment sum (row_merge_add's kernels for
            duplicate rows), whose plain version adds with atomics: there
            within the bound of two f32 summation orders, and the kernels'
@@ -37,6 +40,8 @@ Phases (any failure exits non-zero and prints no result line):
            live, 10% unknown) are scored and timed; one request's rows are
            held against the rows that were written, its scores against the
            tower on the CPU, and one POST /score against the direct score.
+           Fails unless a request launches 4 row_gather (the probe's 2
+           round groups, each both key planes; the values; the inverse).
   train    the training path, with the counters set to 0 just before it: a
            Trainer with the default DLRM (tower from --seed) on the same
            table (2^27 slots, ~100M rows, dim 32, f32, rowwise AdaGrad)
@@ -46,9 +51,12 @@ Phases (any failure exits non-zero and prints no result line):
            hits with inserts. Step p50/p99, examples/s, ids/s, unique ids,
            hits, inserts and drops, first and last loss, launches per step;
            fails on a non-finite loss, drops above 1% of inserts, or other
-           than 1 row_scatter_set and 3 row_merge_add launches a step (the
-           values update; the segment sum's walk and combine pass; an
-           assign batch: other than 3 row_scatter_set launches). Then
+           than 1 row_scatter_set, 1 row_scatter_add (the accumulator's
+           fetch-add) and 3 row_merge_add launches a step (the values
+           update; the segment sum's walk and combine pass), or other than
+           4 row_gather a step plus 1 a planning round (counted by
+           `plan_insert.rounds`; so no gather of the accumulator), or, in an
+           assign batch, other than 3 row_scatter_set launches. Then
            torch.profiler over 4 steps.
   timing   each kernel with CUDA events on the live table's planes, at the
            main paths' shapes, beside its plain version, one library call
@@ -56,10 +64,13 @@ Phases (any failure exits non-zero and prints no result line):
            kernel against its plain version on those inputs (writes on
            copies of the planes), whose largest difference is max_abs_err.
            Also the train step's and a restore batch's multi-plane sets
-           (library: one index_put_ a plane), the segment sum's walk and
-           combine pass apart, a check that the step's valid slots are
-           unique, and the host time of one call of the K1 and K4/K5
-           wrappers.
+           (library: one index_put_ a plane), the key-pair gathers of the
+           probe and of insert planning (library: one index_select a
+           plane), the step's fetch-add (library: index_select +
+           index_add_), the segment sum's walk and combine pass apart, a
+           check that the step's valid slots are unique, the 32-byte-sector
+           bound of the 4-byte-row shapes, and the host time of one call
+           of every wrapper.
   profile  torch.profiler over 8 requests and 4 assign batches: wall time,
            device busy time and the heaviest ops of each.
 
@@ -94,6 +105,8 @@ from meepoembedding_tpu_torch.data import SyntheticConfig, SyntheticStream
 from meepoembedding_tpu_torch.kernels import (
     _build,
     row_gather,
+    row_gather_multi,
+    row_gather_multi_plain,
     row_gather_plain,
     row_merge_add,
     row_merge_add_plain,
@@ -290,6 +303,45 @@ def check_kernels(rows_log2: int, seed: int) -> None:
     del vals, vb
     torch.cuda.empty_cache()
     check_multi_set(g, dev)
+    check_gather_multi(rows_log2, g, dev)
+
+
+def check_gather_multi(rows_log2: int, g, dev) -> None:
+    """row_gather_multi against one plain gather a plane at K = 1-4
+    planes of 2^24 rows (width 1: 2^31 rows, the flat view of [2^24, 128]
+    planes), int32 and f32 planes together, then bf16; n not a multiple of 4
+    (the 4-byte rows' tail); indices below 0, at or beyond R where int32
+    holds them, and R - 1 (64-bit offsets). The K planes are views of one
+    buffer at different row offsets. Bit-exact."""
+    n = (1 << 17) + 3
+    for width in (1, 32, 128, 256):
+        R = (1 << rows_log2) * (128 if width == 1 else 1)
+        for esize in (4, 2):
+            dtype = torch.float32 if esize == 4 else torch.bfloat16
+            buf = torch.randn(((R + 3) * width,), device=dev, dtype=dtype, generator=g)
+
+            def plane(p):
+                b = buf.view(torch.int32) if esize == 4 and p % 2 else buf
+                return b[p * width:(p + R) * width].view(R, width)
+
+            idx = torch.randint(0, R, (n,), device=dev, dtype=torch.int32, generator=g)
+            idx[::101] = -3
+            if R + 7 < 2**31:
+                idx[1::103] = R + 7
+            idx[2::107] = R - 1
+            for k in (1, 2, 3, 4):
+                planes = [plane(p) for p in range(k)]
+                got = row_gather_multi(planes, idx)
+                want = row_gather_multi_plain(planes, idx)
+                torch.cuda.synchronize()
+                if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want)):
+                    raise AssertionError(f"row_gather_multi K={k} [{R}, {width}] {dtype} "
+                                         f"disagrees with its plain version")
+                del got, want
+            log(f"check row_gather_multi: K = 1-4 planes [{R}, {width}] "
+                f"{'int32 + f32' if esize == 4 else 'bf16'}, n={n}: bit-exact")
+            del buf
+            torch.cuda.empty_cache()
 
 
 def check_multi_set(g, dev) -> None:
@@ -378,28 +430,39 @@ def check_add_kernels(rows_log2: int, seed: int) -> None:
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
 
-    # K3, whole rows of an [R, 128] int32 and f32 plane (unique rows, some
-    # below 0 and at or beyond R), then elements of its flat [R * 128, 1]
-    # view (2^31 elements), as the bucket-plane adds use it
+    # K3, whole rows of an [R, 128] int32 and f32 plane and of its
+    # [4R, 32] view (unique rows, some below 0 and at or beyond R), then
+    # elements of its flat [R * 128, 1] view (2^31 elements), as the
+    # bucket-plane adds use it; each as the plain add and as the fetch-add
+    # (plane and `old` bits)
     plane = torch.randint(-(2**31), 2**31 - 1, (R, 128), device=dev, dtype=torch.int32,
                           generator=g)
     rows = (torch.randperm(R + 64, device=dev, generator=g)[:n // 16] - 32).to(torch.int32)
-    flat = _onehot_dup_elements(R, n, 128, 8, g, dev)
+    rows32 = (torch.randperm(4 * R + 64, device=dev, generator=g)[:n // 4 + 1] - 32).to(
+        torch.int32)
+    flat = _onehot_dup_elements(R, n, 128, 8, g, dev)[:-1]  # odd n: the elements' tail
     for dtype in (torch.int32, torch.float32):
         p = plane if dtype == torch.int32 else plane.view(torch.float32).normal_(generator=g)
-        for what, view, idx in (("rows", p, rows), ("flat view", p.view(-1, 1), flat)):
+        for what, view, idx in (("rows", p, rows), ("rows", p.view(-1, 32), rows32),
+                                ("flat view", p.view(-1, 1), flat)):
             if dtype == torch.int32:
                 upd = torch.randint(-(2**31), 2**31 - 1, (idx.shape[0], view.shape[1]),
                                     device=dev, dtype=dtype, generator=g)
             else:
                 upd = torch.randn((idx.shape[0], view.shape[1]), device=dev, generator=g)
-            want = view.clone()
-            row_scatter_add(view, idx, upd)
-            row_scatter_add_plain(want, idx, upd)
-            torch.cuda.synchronize()
-            exact(f"row_scatter_add {what} {tuple(view.shape)} {dtype}, n={idx.shape[0]}",
-                  view, want)
-            del want
+            for fetch in (False, True):
+                want = view.clone()
+                old = torch.full_like(upd, 5) if fetch else None
+                want_old = torch.empty_like(upd) if fetch else None
+                row_scatter_add(view, idx, upd, old)
+                row_scatter_add_plain(want, idx, upd, want_old)
+                torch.cuda.synchronize()
+                name = (f"row_scatter_add{' fetch-add' if fetch else ''} {what} "
+                        f"{tuple(view.shape)} {dtype}, n={idx.shape[0]}")
+                exact(name, view, want)
+                if fetch:
+                    exact(f"{name}: old", old, want_old)
+                del want, old, want_old
 
     # K1, unique rows (the values update): bit-exact on the [R, 128] f32
     # plane (64-bit offsets) and on [R, 32] f32 and bf16 value planes
@@ -554,6 +617,7 @@ def launches() -> dict:
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    table_ops.plan_insert.rounds = 0
 
 
 def delta(before: dict, calls: int) -> str:
@@ -653,6 +717,10 @@ def serve(args, dev, rng, card: str) -> dict:
         f"p99 {np.percentile(lat, 99):.3f} ms, mean {lat.mean():.3f} ms, "
         f"{ids_per_req * len(lat) / (lat.sum() / 1e3):.0f} ids/s on {card}; launches per "
         f"request: {delta(at, len(lat))}")
+    gathers = launches()["row_gather"] - at["row_gather"]
+    if dev.type == "cuda" and gathers != 4 * len(lat):
+        raise AssertionError(f"{len(lat)} requests launched row_gather {gathers} times, not 4 "
+                             f"a request (the probe's 2 round groups, the values, the inverse)")
 
     # one request's rows against the rows that were written (restored from
     # the checkpoint or assigned), and zero rows for the unknown ids
@@ -846,20 +914,45 @@ def entry(label, shape, nbytes, kernel, plain, library, check, kname) -> dict:
     return e
 
 
-def gather_entry(label, plane, idxs) -> dict:
-    """The timing record of row_gather on `plane` over the index sets `idxs`."""
-    n, row_bytes = idxs[0].shape[0], plane.shape[1] * plane.element_size()
+def sector_bound_ms(idx, rows: int, passes: int, other_bytes: int) -> float:
+    """The least time when each scattered 4-byte access moves its whole
+    32-byte sector: the distinct sectors that the indices in [0, rows)
+    touch, `passes` times (1: read; 2: read and written back), plus
+    `other_bytes` of contiguous traffic, over the memory rate."""
+    i = idx.long()
+    sectors = int(torch.unique(i[(i >= 0) & (i < rows)] // 8).numel())
+    return (32 * passes * sectors + other_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def gather_entry(label, planes, idxs) -> dict:
+    """The timing record of row_gather (one plane) or row_gather_multi (a
+    list of planes) over the index sets `idxs`; library: one index_select
+    a plane. The bound reads each distinct row once (a batch's padding
+    repeats one row) and writes every output row; 4-byte rows also get
+    their sector bound."""
+    if isinstance(planes, torch.Tensor):
+        call = (lambda p: lambda i: [row_gather(p, i)])(planes)
+        planes = [planes]
+    else:
+        call = (lambda ps: lambda i: row_gather_multi(ps, i))(planes)
+    k, (R, W), esize = len(planes), planes[0].shape, planes[0].element_size()
+    n = idxs[0].shape[0]
     idx64 = [i.long() for i in idxs]
-    return entry(
-        label, f"{tuple(plane.shape)} {plane.dtype}, n={n}",
-        4 * n + 2 * n * row_bytes,  # indices, rows read, rows written
-        [lambda i=i: row_gather(plane, i) for i in idxs],
-        [lambda i=i: row_gather_plain(plane, i) for i in idxs],
-        [lambda i=i: torch.index_select(plane, 0, i) for i in idx64],
-        lambda: max(max_abs_err("row_gather", row_gather(plane, i),
-                                row_gather_plain(plane, i)) for i in idxs),
-        "row_gather_kernel",
+    distinct = int(torch.unique(idxs[0].clamp(0, R - 1)).numel())
+    e = entry(
+        label, (f"{k} x " if k > 1 else "") + f"{(R, W)} {planes[0].dtype}, n={n} "
+        f"({distinct} distinct)",
+        4 * n + k * (distinct + n) * W * esize,  # indices, rows read, rows written
+        [lambda i=i: call(i) for i in idxs],
+        [lambda i=i: row_gather_multi_plain(planes, i) for i in idxs],
+        [lambda i=i: [torch.index_select(p, 0, i) for p in planes] for i in idx64],
+        lambda: max(max_abs_err("row_gather", a, b) for i in idxs
+                    for a, b in zip(call(i), row_gather_multi_plain(planes, i))),
+        "row_gather_",
     )
+    if W * esize == 4:
+        e["sector_bound_ms"] = sector_bound_ms(idxs[0].clamp(0, R - 1), R, k, 4 * n + 4 * k * n)
+    return e
 
 
 def host_time(name: str, fn, calls: int = 200) -> None:
@@ -878,10 +971,12 @@ def host_time(name: str, fn, calls: int = 200) -> None:
 
 def log_timings(out) -> None:
     for name, e in out:
+        sector = (f", {e['sector_bound_ms']:.4f} ms (32-byte sectors)"
+                  if "sector_bound_ms" in e else "")
         log(f"timing {name} [{e['label']}] {e['shape']}: kernel {e['ms']:.4f} ms (device "
             f"{e['device_ms']:.4f} ms a call, {e['kernel_ms']:.4f} ms in the kernel), "
             f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, "
-            f"bound {e['bound_ms']:.4f} ms (bytes); max |kernel - plain| "
+            f"bound {e['bound_ms']:.4f} ms (bytes){sector}; max |kernel - plain| "
             f"{e['max_abs_err']}")
 
 
@@ -909,7 +1004,7 @@ def time_kernels(svc, requests, seed: int) -> list:
         pr = table_ops.probe(spec, shard, uniq.hi, uniq.lo, uniq.valid)
         slots.append(torch.where(pr.found, pr.slot, 0).to(torch.int32))
         pgs.append(hashing.bucket_of(uniq.hi, uniq.lo, spec.num_buckets) >> 1)
-    pairs = shard.key_hi.view(spec.num_buckets // 2, 2 * LANES)
+    pairs = [p.view(spec.num_buckets // 2, 2 * LANES) for p in (shard.key_hi, shard.key_lo)]
 
     def set_check(plane, idxs, new_upd):
         got, want = plane.clone(), plane.clone()
@@ -920,7 +1015,10 @@ def time_kernels(svc, requests, seed: int) -> list:
         return max_abs_err("row_scatter_set", got, want)
 
     out.append(("row_gather", gather_entry("values per request", shard.values, slots)))
-    out.append(("row_gather", gather_entry("key pairs per probe round pair", pairs, pgs)))
+    out.append(("row_gather", gather_entry(
+        "key pairs (key_hi, key_lo) per probe round group", pairs, pgs)))
+    host_time("row_gather one plane (values)", lambda: row_gather(shard.values, slots[0]))
+    host_time("row_gather_multi two planes (key pair)", lambda: row_gather_multi(pairs, pgs[0]))
 
     # restore-batch-sized sets of live slots, writing back what is there:
     # one element per slot into the flat key plane, whole rows into the
@@ -1059,9 +1157,9 @@ def multi_set_entry(label, planes, sets, g) -> dict:
 
 
 def time_train_kernels(tr, batch, seed: int) -> list:
-    """row_merge_add, row_scatter_add and the accumulator's row_gather at the
-    training path's shapes, on the inputs of one real step: after a train
-    step on `batch`, the probe of
+    """row_merge_add, row_scatter_add and the row_gathers of insert planning
+    and the accumulator at the training path's shapes, on the inputs of one
+    real step: after a train step on `batch`, the probe of
     its unique ids gives that step's slots, and the dedup its inverse.
     Timed calls add zeros to the live planes (the table is unchanged) on 8
     input sets, the slots shifted by a different multiple of a bucket each
@@ -1152,34 +1250,68 @@ def time_train_kernels(tr, batch, seed: int) -> list:
     )))
     host_time("segment_sum", lambda: segment_sum(grads[0], inv, U, order, sids))
 
-    # the rowwise accumulator read: one f32 element per unique slot of the
-    # plane's flat view (4-byte rows), slots < 0 clamped as the step does
+    # insert planning's gather of a round: both key planes' [nb, 128] rows
+    # at every unique id's bucket of the round (b0 ^ r, r = 0-7 rotating)
+    b0 = hashing.bucket_of(uniq.hi, uniq.lo, spec.num_buckets)
+    out.append(("row_gather", gather_entry(
+        "key buckets (key_hi, key_lo) per insert planning round",
+        [shard.key_hi, shard.key_lo], [b0 ^ r for r in range(8)])))
+
+    # the rowwise accumulator read alone, the plain K2 baseline of the
+    # fetch-add below (the step no longer launches it): one f32 element per
+    # unique slot of the plane's flat view, slots < 0 clamped
     acc = shard.opt_rowwise[0].view(-1, 1)
     out.append(("row_gather", gather_entry(
-        "accumulator element read per step", acc, [v.clamp(min=0) for v in vrows])))
+        "accumulator element read (no longer on the step's path)", acc,
+        [v.clamp(min=0) for v in vrows])))
 
-    # the rowwise accumulator add: one f32 element per unique slot
+    # the rowwise accumulator's fetch-add (the step's call), then the plain
+    # add: one f32 element per unique slot
     zero1 = torch.zeros((n, 1), device=dev)
+    olds = [torch.empty((n, 1), device=dev) for _ in range(2)]
 
-    def add_check():
+    def add_check(fetch):
         got, want = acc.clone(), acc.clone()
+        err = 0.0
         for v in vrows[:2]:
             upd = torch.rand((n, 1), device=dev, generator=g)
-            row_scatter_add(got, v, upd)
-            row_scatter_add_plain(want, v, upd)
-        return max_abs_err("row_scatter_add", got, want)
+            row_scatter_add(got, v, upd, olds[0] if fetch else None)
+            row_scatter_add_plain(want, v, upd, olds[1] if fetch else None)
+            if fetch:
+                err = max(err, max_abs_err("row_scatter_add old", olds[0], olds[1]))
+        return max(err, max_abs_err("row_scatter_add", got, want))
+
+    def fetch_library(v64):
+        acc.view(-1).index_select(0, v64)
+        acc.view(-1).index_add_(0, v64, zero1[:T, 0])
 
     out.append(("row_scatter_add", entry(
-        "rowwise accumulator add per step",
+        "rowwise accumulator fetch-add per step (the add and the old values)",
+        f"{tuple(acc.shape)} f32 (the {tuple(shard.opt_rowwise[0].shape)} plane), m={n} "
+        f"({T} valid)",
+        4 * n + 3 * 4 * T + 4 * n,  # indices; updates, elements read and written; old
+        [lambda v=v: row_scatter_add(acc, v, zero1, olds[0]) for v in vrows],
+        [lambda v=v: row_scatter_add_plain(acc, v, zero1, olds[1]) for v in vrows],
+        [lambda v=v: fetch_library(v) for v in vrow64],
+        lambda: add_check(True),
+        "row_add_",
+    )))
+    out[-1][1]["sector_bound_ms"] = sector_bound_ms(vrows[0], C, 2, 4 * n + 4 * T + 4 * n)
+    host_time("row_scatter_add fetch-add", lambda: row_scatter_add(acc, vrows[0], zero1, olds[0]))
+    host_time("row_scatter_add", lambda: row_scatter_add(acc, vrows[0], zero1))
+
+    out.append(("row_scatter_add", entry(
+        "rowwise accumulator add alone (the plain add)",
         f"{tuple(acc.shape)} f32 (the {tuple(shard.opt_rowwise[0].shape)} plane), m={n} "
         f"({T} valid)",
         4 * n + 3 * 4 * T,  # indices; updates read, elements read, elements written
         [lambda v=v: row_scatter_add(acc, v, zero1) for v in vrows],
         [lambda v=v: row_scatter_add_plain(acc, v, zero1) for v in vrows],
         [lambda v=v: acc.view(-1).index_add_(0, v, zero1[:T, 0]) for v in vrow64],
-        add_check,
-        "row_add_kernel",
+        lambda: add_check(False),
+        "row_add_",
     )))
+    out[-1][1]["sector_bound_ms"] = sector_bound_ms(vrows[0], C, 2, 4 * n + 4 * T)
 
     # the step's multi-plane set (lookup_train: the fresh keys' key_hi,
     # key_lo, freq = 1 and last = step) on copies of the four bucket planes,
@@ -1288,13 +1420,25 @@ def main() -> int:
     for name, count in train_counts.items():
         if count <= 0:
             raise AssertionError(f"the training path never launched {name}")
-    # one multi-plane set (the fresh keys' key_hi, key_lo, freq, last) and
-    # three K1 launches (the unique-row values update; the segment sum's
-    # walk and combine pass) a step
-    for name, want in (("row_scatter_set", 1), ("row_merge_add", 3)):
+    # one multi-plane set (the fresh keys' key_hi, key_lo, freq, last), one
+    # fetch-add (the rowwise accumulator) and three K1 launches (the
+    # unique-row values update; the segment sum's walk and combine pass) a
+    # step
+    for name, want in (("row_scatter_set", 1), ("row_scatter_add", 1), ("row_merge_add", 3)):
         if train_counts[name] != want * steps:
             raise AssertionError(f"the train step launched {name} "
                                  f"{train_counts[name] / steps:.2f} times, not {want}")
+    # gathers: the probe's 2 round groups, the values read and the rows by
+    # the inverse, plus one a planning round; none of the accumulator
+    rounds = table_ops.plan_insert.rounds
+    max_rounds = tres["trainer"].spec.max_probe_rounds
+    log(f"train: row_gather {train_counts['row_gather'] / steps:.2f} a step, insert planning "
+        f"{rounds / steps:.2f} rounds a step")
+    if (train_counts["row_gather"] != 4 * steps + rounds
+            or not 0 <= rounds <= max_rounds * steps):
+        raise AssertionError(f"the train steps launched row_gather {train_counts['row_gather']} "
+                             f"times in {steps} steps of {rounds} planning rounds, not 4 a step "
+                             f"+ 1 a round (at most {max_rounds} rounds a step)")
 
     profile_train(tres["trainer"], tres["spare"][:4])
     timings = time_kernels(res["svc"], res["requests"], args.seed)
@@ -1312,7 +1456,7 @@ def main() -> int:
                           "meepoembedding_tpu/table/stream_merge.py:61"),
     }
     keys = ("label", "shape", "ms", "device_ms", "kernel_ms", "plain_ms", "bound_ms",
-            "library_ms", "max_abs_err")
+            "sector_bound_ms", "library_ms", "max_abs_err")
     kernels = []
     for name, (source, replaces) in meta.items():
         mine = [t for n, t in timings if n == name]
@@ -1324,7 +1468,7 @@ def main() -> int:
             "device_ms": e["device_ms"], "kernel_ms": e["kernel_ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": "bytes",
             "library_ms": e["library_ms"], "shape": e["shape"],
-            "shapes": [{k: t[k] for k in keys} for t in mine],
+            "shapes": [{k: t[k] for k in keys if k in t} for t in mine],
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

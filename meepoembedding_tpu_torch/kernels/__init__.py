@@ -6,10 +6,16 @@ first use by `_build`) or the wrapper raises. There is no fallback from the
 kernel to the plain version. Each kernel source counts its launches in a
 plain integer attribute of its main wrapper, `<wrapper>.launches`
 (`segment_sum` counts its two kernels in `row_merge_add.launches`,
-`row_scatter_set_multi` in `row_scatter_set.launches`).
+`row_scatter_set_multi` in `row_scatter_set.launches`, `row_gather_multi`
+in `row_gather.launches`).
 """
 
-from meepoembedding_tpu_torch.kernels.row_gather import row_gather, row_gather_plain  # noqa: F401
+from meepoembedding_tpu_torch.kernels.row_gather import (  # noqa: F401
+    row_gather,
+    row_gather_multi,
+    row_gather_multi_plain,
+    row_gather_plain,
+)
 from meepoembedding_tpu_torch.kernels.row_merge_add import (  # noqa: F401
     row_merge_add,
     row_merge_add_plain,

@@ -3,10 +3,13 @@ optimizer (port of `meepoembedding_tpu/ops/optim.py`).
 
 Sparse updates arrive as one gradient row per unique slot (segment-summed),
 so every touched slot appears once. Each update gathers the touched rows'
-state, computes in f32, and adds the deltas back in place: bucket-plane
-scalars (the rowwise accumulator) through `row_scatter_add` (K3), row deltas
-of the values plane and the full-dim state planes through `row_merge_add`
-(K1). Slots < 0 (invalid, denied or dropped ids) update nothing.
+state (the planes of one optimizer in one launch), computes in f32, and adds
+the deltas back in place: bucket-plane scalars (the rowwise accumulator)
+through `row_scatter_add` (K3) as a fetch-add, which also hands back the
+values it added to, row deltas of the values plane and the full-dim state
+planes through `row_merge_add` (K1). Slots < 0 (invalid, denied or dropped
+ids) update nothing; their old accumulator reads 0 and feeds only rows that
+the values update drops.
 
 The reference's rowwise accumulator sums g^2 over 128 window lanes (zeros
 outside the row's window); here it sums over `dim` lanes, so accumulators
@@ -28,9 +31,8 @@ import torch
 
 from meepoembedding_tpu_torch.table.layout import TableShard, TableSpec
 from meepoembedding_tpu_torch.table.table_ops import (
-    gather_bucket_plane,
-    gather_values,
-    scatter_add_bucket_plane,
+    fetch_add_bucket_plane,
+    gather_values_multi,
     scatter_add_values,
 )
 
@@ -52,11 +54,10 @@ def apply_sparse_grads_ctx(spec: TableSpec, shard: TableShard, ctx, grad: torch.
         return
     if opt.kind == "rowwise_adagrad":
         (accum,) = shard.opt_rowwise
-        a_old = gather_bucket_plane(accum, slot)  # fresh slots hold 0
         g2 = (grad * grad).sum(dim=1) / spec.dim
         acc_add = g2 + torch.where(fresh, opt.initial_accumulator, 0.0)
-        a_new = a_old + acc_add
-        scatter_add_bucket_plane(accum, slot, acc_add, enabled)
+        # fresh slots hold 0 before the add
+        a_new = fetch_add_bucket_plane(accum, slot, acc_add, enabled) + acc_add
         scale = opt.learning_rate * torch.rsqrt(a_new + opt.eps)
         scatter_add_values(shard.values, slot, init_add - scale[:, None] * grad, enabled)
         return
@@ -74,23 +75,21 @@ def apply_sparse_grads(spec: TableSpec, shard: TableShard, slot: torch.Tensor,
     grad = torch.where(enabled[:, None], grad.float(), 0.0)
     kind = opt.kind
 
-    def rows(plane):
-        return gather_values(plane, slot).float()
+    def rows(*planes):
+        return [r.float() for r in gather_values_multi(planes, slot)]
 
     if kind == "sgd":
         scatter_add_values(shard.values, slot, -opt.learning_rate * grad, enabled)
     elif kind == "rowwise_adagrad":
         # one accumulator per row: a += mean(g^2); w -= lr / sqrt(a) * g
         (accum,) = shard.opt_rowwise
-        a_old = gather_bucket_plane(accum, slot)
         g2 = (grad * grad).mean(dim=1)
-        a_new = a_old + g2
-        scatter_add_bucket_plane(accum, slot, g2, enabled)
+        a_new = fetch_add_bucket_plane(accum, slot, g2, enabled) + g2
         scale = opt.learning_rate * torch.rsqrt(a_new + opt.eps)
         scatter_add_values(shard.values, slot, -scale[:, None] * grad, enabled)
     elif kind == "adagrad":
         (accum,) = shard.opt_fulldim
-        a_old = rows(accum)
+        (a_old,) = rows(accum)
         a_new = a_old + grad * grad
         scatter_add_values(accum, slot, a_new - a_old, enabled)
         delta = -opt.learning_rate * grad * torch.rsqrt(a_new + opt.eps)
@@ -98,7 +97,7 @@ def apply_sparse_grads(spec: TableSpec, shard: TableShard, slot: torch.Tensor,
     elif kind == "adam":
         # lazy sparse Adam: moments update on touched rows, no bias correction
         m_plane, v_plane = shard.opt_fulldim
-        m_old, v_old = rows(m_plane), rows(v_plane)
+        m_old, v_old = rows(m_plane, v_plane)
         m_new = opt.beta1 * m_old + (1 - opt.beta1) * grad
         v_new = opt.beta2 * v_old + (1 - opt.beta2) * grad * grad
         scatter_add_values(m_plane, slot, m_new - m_old, enabled)
@@ -107,7 +106,7 @@ def apply_sparse_grads(spec: TableSpec, shard: TableShard, slot: torch.Tensor,
         scatter_add_values(shard.values, slot, delta, enabled)
     elif kind == "momentum":
         (m_plane,) = shard.opt_fulldim
-        m_old = rows(m_plane)
+        (m_old,) = rows(m_plane)
         m_new = opt.beta1 * m_old + grad
         scatter_add_values(m_plane, slot, m_new - m_old, enabled)
         scatter_add_values(shard.values, slot, -opt.learning_rate * m_new, enabled)
@@ -115,7 +114,7 @@ def apply_sparse_grads(spec: TableSpec, shard: TableShard, slot: torch.Tensor,
         # FTRL-Proximal: w is a closed form of (z, n); the values plane gets
         # the exact delta w_new - w_old
         z_plane, n_plane = shard.opt_fulldim
-        z_old, n_old, w_old = rows(z_plane), rows(n_plane), rows(shard.values)
+        z_old, n_old, w_old = rows(z_plane, n_plane, shard.values)
         alpha = opt.learning_rate
         n_new = n_old + grad * grad
         sigma = (torch.sqrt(n_new) - torch.sqrt(n_old)) / alpha

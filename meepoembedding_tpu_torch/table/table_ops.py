@@ -1,8 +1,8 @@
 """Table storage ops on tensors (port of `meepoembedding_tpu/table/xla_ops.py`,
 the serving and training paths).
 
-  probe              XOR pair-probing: one row gather per two rounds of each
-                     key plane, viewed as [nb/2, 256] bucket pairs.
+  probe              XOR pair-probing: one row gather of both key planes,
+                     viewed as [nb/2, 256] bucket pairs, per two rounds.
   plan_insert        collision-free free-lane assignment for missed keys,
                      round by round, with the reference's exact slot choice.
   insert_rows        bulk upsert (restore, `table.assign`): probe, plan, then
@@ -14,11 +14,12 @@ the serving and training paths).
                      of every unique id (fresh ids: their init) and no write
                      to the values plane.
 
-Every row gather goes through `kernels.row_gather`, every row set through
-`kernels.row_scatter_set_multi` (the planes that share an index in one
-launch), every bucket-plane add through `kernels.row_scatter_add` and every
-values-plane add through `kernels.row_merge_add` on unique rows; on CPU
-tensors those take their plain versions. Shards are updated in place.
+Every row gather goes through `kernels.row_gather_multi` and every row set
+through `kernels.row_scatter_set_multi` (the planes that share an index in
+one launch), every bucket-plane add through `kernels.row_scatter_add` (a
+fetch-add where the caller needs the old values) and every values-plane add
+through `kernels.row_merge_add` on unique rows; on CPU tensors those take
+their plain versions. Shards are updated in place.
 
 The reference writes with `mode="drop"` scatters whose dropped entries carry
 the index `len`; PyTorch has no such mode, so the small [nb] count updates
@@ -37,7 +38,7 @@ import torch
 
 from meepoembedding_tpu_torch.config import LANES
 from meepoembedding_tpu_torch.kernels import (
-    row_gather,
+    row_gather_multi,
     row_merge_add,
     row_scatter_add,
     row_scatter_set_multi,
@@ -75,7 +76,8 @@ def _first_true(m: torch.Tensor) -> torch.Tensor:
 def probe(spec: TableSpec, shard: TableShard, uh, ul, valid) -> ProbeResult:
     """Find the slots of (deduped) keys in `max_probe_rounds` rounds of
     bucketized XOR probing (b0 ^ r). Rounds 2g and 2g+1 share one aligned
-    bucket pair, so one [n, 256] gather of each key plane serves two rounds."""
+    bucket pair, so one launch that gathers [n, 256] rows of both key
+    planes serves two rounds."""
     nb = spec.num_buckets
     b0 = hashing.bucket_of(uh, ul, nb)
     n = uh.shape[0]
@@ -94,8 +96,7 @@ def probe(spec: TableSpec, shard: TableShard, uh, ul, valid) -> ProbeResult:
         # an odd `rounds` probes one extra bucket: harmless, nothing is ever
         # stored beyond a key's insert rounds
         pg = p0 ^ g
-        row_h = row_gather(hi_pair, pg)
-        row_l = row_gather(lo_pair, pg)
+        row_h, row_l = row_gather_multi((hi_pair, lo_pair), pg)
         m_e = (row_h[:, :LANES] == uh_c) & (row_l[:, :LANES] == ul_c)
         m_o = (row_h[:, LANES:] == uh_c) & (row_l[:, LANES:] == ul_c)
         hit_e = m_e.any(dim=1) & valid
@@ -142,8 +143,8 @@ def _plan_insert_impl(spec: TableSpec, shard: TableShard, uh, ul, want):
         rank[order] = rank_sorted
         # the bucket's free lanes, in lane order, from the planes as they were
         # before this call (the `claimed` tally accounts for this call's picks)
-        kh = row_gather(shard.key_hi, b)
-        kl = row_gather(shard.key_lo, b)
+        kh, kl = row_gather_multi((shard.key_hi, shard.key_lo), b)
+        plan_insert.rounds += 1
         free = (kh == hashing.EMPTY_HI) & (kl == hashing.EMPTY_LO)
         cum = torch.cumsum(free, dim=1, dtype=torch.int32)
         num_free = cum[:, -1]
@@ -167,7 +168,10 @@ def plan_insert(spec: TableSpec, shard: TableShard, uh, ul, want) -> InsertPlan:
     per-bucket `claimed` tally carries the picks across rounds.
 
     `spec.insert_cap` bounds the admitted inserts of one call: the first
-    `insert_cap` wanted keys are planned, the rest get slot -1."""
+    `insert_cap` wanted keys are planned, the rest get slot -1.
+
+    `plan_insert.rounds` counts the rounds planned (each one gather of the
+    key planes), so that a run can tell its gathers apart."""
     n = uh.shape[0]
     C = spec.insert_cap
     if C is None or C >= n:
@@ -189,10 +193,19 @@ def plan_insert(spec: TableSpec, shard: TableShard, uh, ul, want) -> InsertPlan:
     return InsertPlan(slot=slot, ok=want & (slot >= 0), cnt=cnt, ovf=ovf)
 
 
+plan_insert.rounds = 0
+
+
+def gather_values_multi(planes: Sequence[torch.Tensor], slot: torch.Tensor) -> list:
+    """[n] slots -> [n, dim] rows of each of up to 4 row-major planes of one
+    shape (the values plane, full-dim optimizer state), in one launch. Slots
+    < 0 read row 0; the caller masks them."""
+    return row_gather_multi(planes, slot.clamp(min=0))
+
+
 def gather_values(plane: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
-    """[n] slots -> [n, dim] rows of a row-major value plane. Slots < 0 read
-    row 0; the caller masks them."""
-    return row_gather(plane, slot.clamp(min=0))
+    """`gather_values_multi` of one plane."""
+    return gather_values_multi((plane,), slot)[0]
 
 
 def lookup_rows(shard: TableShard, slot: torch.Tensor) -> torch.Tensor:
@@ -231,20 +244,26 @@ def scatter_set_values(idx: torch.Tensor, writes: Sequence[tuple]) -> None:
          for p, v in writes])
 
 
-def gather_bucket_plane(plane: torch.Tensor, slot) -> torch.Tensor:
-    """plane[slot // 128, slot % 128] for a [nb, 128] plane: one element
-    gather from its flat [nb * 128, 1] view. Slots < 0 read slot 0, as in
-    the reference; the caller masks them."""
-    return row_gather(plane.view(-1, 1), slot.clamp(min=0).to(torch.int32)).view(-1)
-
-
-def scatter_add_bucket_plane(plane: torch.Tensor, slot, val, enabled) -> None:
+def scatter_add_bucket_plane(plane: torch.Tensor, slot, val, enabled,
+                             old: Optional[torch.Tensor] = None) -> None:
     """plane[slot // 128, slot % 128] += val where enabled, in place, for a
     [nb, 128] int32 (wrapping) or f32 plane: one element add on its flat
-    [nb * 128, 1] view (enabled slots are unique)."""
+    [nb * 128, 1] view (enabled slots are unique). `old` ([n, 1], the
+    plane's type), when given, receives each enabled slot's value from
+    before the add, 0 elsewhere, in the same launch."""
     val = torch.as_tensor(val, device=slot.device).to(plane.dtype).expand(slot.shape)
-    idx = torch.where(enabled, slot, -1).to(torch.int32)
-    row_scatter_add(plane.view(-1, 1), idx, val.reshape(-1, 1).contiguous())
+    row_scatter_add(plane.view(-1, 1), set_index(slot, enabled),
+                    val.reshape(-1, 1).contiguous(), old)
+
+
+def fetch_add_bucket_plane(plane: torch.Tensor, slot, val, enabled) -> torch.Tensor:
+    """`scatter_add_bucket_plane` that also returns the [n] values from
+    before the add: the old value where enabled, 0 elsewhere (the
+    reference's `gather_bucket_plane` read slot 0 there; no caller uses the
+    values of slots it does not update)."""
+    old = torch.empty((slot.shape[0], 1), dtype=plane.dtype, device=slot.device)
+    scatter_add_bucket_plane(plane, slot, val, enabled, old)
+    return old.view(-1)
 
 
 def scatter_add_values(plane: torch.Tensor, slot, rows, enabled) -> None:

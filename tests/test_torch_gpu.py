@@ -13,6 +13,8 @@ import torch
 
 from meepoembedding_tpu_torch.kernels import (
     row_gather,
+    row_gather_multi,
+    row_gather_multi_plain,
     row_gather_plain,
     row_merge_add,
     row_merge_add_plain,
@@ -308,3 +310,68 @@ def test_row_scatter_set_multi_matches_plain(k):
     row_scatter_set_multi_plain(want, idx, values)
     for got, exp in zip(planes, want):
         assert torch.equal(_bits(got), _bits(exp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("width", [1, 32, 128, 256])
+@pytest.mark.parametrize("esize", [4, 2])
+def test_row_gather_multi_matches_plain(k, width, esize):
+    """K planes of one shape that share an index (int32 and f32 mixed, or
+    bf16), indices below 0 and at or beyond R, n not a multiple of 4; also
+    with an index that is not 16-byte aligned. Bit-exact, one launch a call."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(100 * k + width + esize)
+    R, n = 1 << 14, 40_003
+    dtypes = (torch.int32, torch.float32) if esize == 4 else (torch.bfloat16,)
+    planes = [_random_plane((R, width), dtypes[p % len(dtypes)], g, dev) for p in range(k)]
+    idx = torch.randint(-100, R + 100, (n + 1,), device=dev, dtype=torch.int32, generator=g)
+    before = row_gather.launches
+    for i in (idx[:n], idx[1:]):
+        got = row_gather_multi(planes, i)
+        torch.cuda.synchronize()
+        for a, b in zip(got, row_gather_multi_plain(planes, i)):
+            assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+    assert row_gather.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("width", [1, 3, 32, 128])
+def test_row_scatter_add_fetch_matches_plain(dtype, width):
+    """The fetch-add: unique rows, some below 0 and some at or beyond R;
+    the plane's bits and `old` (0 on dropped rows) equal the plain
+    version's, int32 wrapping; n not a multiple of 4."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(7 * width)
+    R, n = 1 << 16, 20_003
+    kernel = _random_plane((R, width), dtype, g, dev)
+    idx = (torch.randperm(R + 64, device=dev, generator=g)[:n] - 32).to(torch.int32)
+    upd = _random_plane((n, width), dtype, g, dev)
+    plain = kernel.clone()
+    old = torch.full((n, width), 9, dtype=dtype, device=dev)
+    want_old = torch.empty_like(old)
+    before = row_scatter_add.launches
+    row_scatter_add(kernel, idx, upd, old)
+    torch.cuda.synchronize()
+    assert row_scatter_add.launches == before + 1
+    row_scatter_add_plain(plain, idx, upd, want_old)
+    assert torch.equal(_bits(kernel), _bits(plain))
+    assert torch.equal(_bits(old), _bits(want_old))
+    dropped = (idx < 0) | (idx >= R)
+    assert bool(dropped.any()) and not bool(old[dropped].any())
+
+
+@pytest.mark.gpu
+def test_gather_and_fetch_add_refuse_mixed_devices_and_rows():
+    dev = _cuda()
+    plane = torch.zeros((8, 4), device=dev)
+    idx = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # planes on two devices
+        row_gather_multi([plane, plane.cpu()], idx)
+    with pytest.raises(ValueError):  # idx on the CPU
+        row_gather_multi([plane, plane], idx.cpu())
+    with pytest.raises(ValueError):  # mixed row bytes
+        row_gather_multi([plane, torch.zeros((8, 8), device=dev)], idx)
+    with pytest.raises(ValueError):  # old on the CPU
+        row_scatter_add(plane, idx, torch.zeros((2, 4), device=dev), torch.zeros((2, 4)))

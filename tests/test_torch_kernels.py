@@ -18,7 +18,12 @@ import torch
 
 from meepoembedding_tpu.table import pallas_ops
 from meepoembedding_tpu.table.stream_merge import BLOCKR, stream_merge_set
-from meepoembedding_tpu_torch.kernels import row_gather, row_scatter_set
+from meepoembedding_tpu_torch.kernels import (
+    row_gather,
+    row_gather_multi,
+    row_scatter_add,
+    row_scatter_set,
+)
 
 torch.set_num_threads(1)
 
@@ -175,3 +180,18 @@ def test_wrappers_validate_arguments():
                         torch.zeros(2, 4, dtype=torch.float64))
     with pytest.raises(ValueError):
         row_scatter_set(plane, torch.zeros(2, dtype=torch.int32), torch.zeros(2, 3))
+    idx = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError):  # no plane, or more than MAX_PLANES
+        row_gather_multi([], idx)
+    with pytest.raises(ValueError):
+        row_gather_multi([plane] * 5, idx)
+    with pytest.raises(ValueError):  # mixed row bytes
+        row_gather_multi([plane, torch.zeros((8, 5))], idx)
+    with pytest.raises(ValueError):  # one shape, mixed element sizes
+        row_gather_multi([plane, plane.to(torch.bfloat16)], idx)
+    with pytest.raises(ValueError):
+        row_gather_multi([plane], idx.long())
+    with pytest.raises(ValueError):  # a fetch-add's old of another shape or type
+        row_scatter_add(plane, idx, torch.zeros(2, 4), torch.zeros(3, 4))
+    with pytest.raises(ValueError):
+        row_scatter_add(plane, idx, torch.zeros(2, 4), torch.zeros(2, 4, dtype=torch.int32))
