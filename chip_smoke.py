@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch + CUDA port's serving and training paths on one card
-and check them.
+"""Run the PyTorch + CUDA port's serving, training and table-lifecycle
+paths on one card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -73,10 +73,33 @@ Phases (any failure exits non-zero and prints no result line):
            of every wrapper.
   profile  torch.profiler over 8 requests and 4 assign batches: wall time,
            device busy time and the heaviest ops of each.
+  lifecycle  with the counters set to 0 just before it. (a) On the live
+           table at full width: a Trainer with LFU (freq < 2) / TTL (20
+           steps) eviction over windows of 2^15 of the 2^20 buckets, at
+           most 2^14 rows a pass, into a HostKVStore spill tier, takes 40
+           steps of 4096 x 26 ids with maintenance() every 5. Each pass's
+           spilled payloads must equal, bit for bit, the rows the plain
+           rule selects on a copy of the window taken just before it, and
+           its ids probe absent; evicted == spilled == the store's rows;
+           check_invariants all 0. Then `remove` of 65,536 assigned ids
+           (count and erases equal the ids found before; none found after;
+           invariants 0), and promotion of 4,096 spilled ids through a
+           table's train lookups (rows equal their payload, promotes
+           counted, gone from the store). A step must launch 2 sets, 2
+           row_scatter_add, 3 row_merge_add and 4 + rounds row_gather; a
+           pass 3 row_gather and 2 sets. (b) At reduced depth, same width:
+           a Trainer on a 2^23-slot table filled to 6,000,000 rows saves
+           async after 3 steps and streamed (parts of 2^22 rows) after 5;
+           both restore with every row and dense leaf equal to the
+           trainer's at the save's step; a grow_at_load=0.75 table of the
+           same rows grows to 2^24 slots through a train lookup of 2^19 new
+           ids, every earlier row kept. Then the lifecycle's new call
+           shapes are timed as the timing phase times the others.
 
 The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}. `--rehearse-on-cpu` runs the serve
-and train phases on the CPU at the sizes given (with the plain versions) and
+limit, and {"ok": true, "device": {...}}. `--rehearse-on-cpu` runs the
+serve, train and lifecycle phases on the CPU at the sizes given (the
+lifecycle's reduced-depth table at 2^14 slots) with the plain versions and
 exits 1 without a result: a dry run of the control flow on machines without
 a card.
 """
@@ -87,6 +110,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -100,7 +124,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from meepoembedding_tpu_torch import ModelConfig, ScoringService, TableConfig, make_http_server
-from meepoembedding_tpu_torch.config import LANES, RunConfig
+from meepoembedding_tpu_torch.backends import HostKVStore
+from meepoembedding_tpu_torch.checkpoint import export_shard_arrays, load_dense
+from meepoembedding_tpu_torch.config import LANES, PolicyConfig, RunConfig
 from meepoembedding_tpu_torch.data import SyntheticConfig, SyntheticStream
 from meepoembedding_tpu_torch.kernels import (
     _build,
@@ -121,7 +147,11 @@ from meepoembedding_tpu_torch.kernels import (
 )
 from meepoembedding_tpu_torch.ops import dedup
 from meepoembedding_tpu_torch.table import hashing, table_ops
+from meepoembedding_tpu_torch.table.layout import TableSpec
+from meepoembedding_tpu_torch.table.runtime import DynamicEmbeddingTable
+from meepoembedding_tpu_torch.tiering import SpillCodec
 from meepoembedding_tpu_torch.train import Trainer
+from meepoembedding_tpu_torch.weights import to_jax_params
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -778,7 +808,7 @@ def serve(args, dev, rng, card: str) -> dict:
         th.join(timeout=30)
     np.testing.assert_allclose(http_scores, scores[0], atol=1e-6)
     log("serve: POST /score matches the direct score")
-    return {"svc": svc, "requests": reqs[3:]}
+    return {"svc": svc, "requests": reqs[3:], "assigned": kept_ids}
 
 
 def train(args, table, dev, card: str) -> dict:
@@ -1358,6 +1388,399 @@ def run_profiled(name: str, fn, count: int, unit: str) -> None:
             f"x{e.count / count:g}")
 
 
+# --- lifecycle -----------------------------------------------------------------
+
+LIFE_STEPS, LIFE_EVERY = 40, 5  # steps on the live table, maintenance() every 5
+LIFE_WINDOW, LIFE_EVICT = 1 << 15, 1 << 14  # buckets scanned and rows evicted a pass
+LIFE_REMOVE, LIFE_PROMOTE = 65_536, 4096  # ids removed, spilled ids promoted back
+LIFE_DEPTH_CAP, LIFE_DEPTH_ROWS = 1 << 23, 6_000_000  # the reduced-depth table
+LIFE_PART_ROWS = 1 << 22  # rows a part file of the streamed save
+
+
+def _ms(s: float) -> str:
+    return f"{s * 1e3:.3f} ms"
+
+
+def _window_copy(shard, off: int, K: int) -> dict:
+    """Plain copies (torch indexing, no kernel) of the evict window's bucket
+    rows [off, off + K) mod nb of every plane a pass reads or exports."""
+    nb = shard.cnt.shape[0]
+    wrows = (off + torch.arange(K, device=shard.cnt.device)) % nb
+    cp = {n: getattr(shard, n)[wrows].clone() for n in ("key_hi", "key_lo", "freq", "last")}
+    cp["accum"] = shard.opt_rowwise[0][wrows].clone()
+    slots = (wrows[:, None] * LANES + torch.arange(LANES, device=wrows.device)).view(-1)
+    cp["values"] = shard.values[slots].clone()
+    return cp
+
+
+def _expected_export(cp: dict, policy, step: int):
+    """A pass's export by the plain rule on the window's copy: the live LFU
+    or TTL cold lanes in window order, the first max_evict_per_pass."""
+    kh, kl = cp["key_hi"].view(-1), cp["key_lo"].view(-1)
+    cold = (cp["freq"] < policy.lfu_min_freq) | ((step - cp["last"]) > policy.ttl_steps)
+    idx = (hashing.is_valid(kh, kl) & cold.view(-1)).nonzero()[:, 0][:policy.max_evict_per_pass]
+    ids = hashing.join_ids(kh[idx].cpu().numpy(), kl[idx].cpu().numpy())
+    return ids, {"values": cp["values"][idx].cpu().numpy(),
+                 "freq": cp["freq"].view(-1)[idx].cpu().numpy(),
+                 "accum": cp["accum"].view(-1)[idx].cpu().numpy()}
+
+
+def _check_spilled(store, ids, want: dict, dim: int) -> None:
+    """The spill tier holds each id's payload equal, bit for bit, to the
+    copy: values, freq and the accumulator."""
+    payload, found = store.lookup_batch(ids)
+    if not found.all():
+        raise AssertionError(f"{int((~found).sum())} evicted ids are not in the spill tier")
+    same = (np.array_equal(payload[:, :dim].view(np.int32), want["values"].view(np.int32))
+            and np.array_equal(payload[:, dim], want["freq"].astype(np.float32))
+            and np.array_equal(payload[:, dim + 1].view(np.int32), want["accum"].view(np.int32)))
+    if not same:
+        raise AssertionError("a pass's spilled rows differ from the window's planes before it")
+
+
+def _found(spec, shard, ids) -> torch.Tensor:
+    hi, lo = hashing.split_ids_t(ids)
+    return table_ops.probe(spec, shard, hi, lo, hashing.is_valid(hi, lo)).found
+
+
+def _launch_delta(before: dict) -> dict:
+    now = launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def lifecycle_live(args, table, assigned, dev, card: str) -> dict:
+    """Part a, at full width on the live table, in place: a Trainer with
+    LFU/TTL eviction into a host-DRAM spill tier (`HostKVStore`) takes
+    LIFE_STEPS steps with maintenance() every LIFE_EVERY; then `remove`,
+    then promotion back from the spill tier through a table's train
+    lookups."""
+    rehearse = args.rehearse_on_cpu
+    nb = table.spec.num_buckets
+    policy = PolicyConfig(evict_policy="lfu_ttl", ttl_steps=20, lfu_min_freq=2,
+                          max_evict_per_pass=LIFE_EVICT,
+                          evict_scan_buckets=max(1, nb // 32) if rehearse else LIFE_WINDOW)
+    cfg = dataclasses.replace(table.cfg, policy=policy)
+    store = HostKVStore(SpillCodec(TableSpec.from_config(cfg)).width)
+    bsz = args.batch if rehearse else TRAIN_BATCH
+    tr = Trainer(RunConfig(batch_size=bsz, steps=LIFE_STEPS, seed=args.seed), cfg, ModelConfig(),
+                 device=dev, generator=torch.Generator().manual_seed(args.seed + 29),
+                 shard=table.shard, spill=store)
+    tr.step = table.step  # the step clock goes on from the checkpoint's
+    stream = SyntheticStream(SyntheticConfig(batch_size=bsz, seed=args.seed + 31,
+                                             drift_per_step=500))
+    c0 = tr.counters()
+    step_ms, pass_ms, evicted, last_ids = [], [], 0, None
+    on_card = dev.type == "cuda"
+    for i, b in enumerate(stream.batches(LIFE_STEPS)):
+        at, r0 = launches(), table_ops.plan_insert.rounds
+        t0 = time.perf_counter()
+        loss = tr.train_step(b)["loss"]
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(loss):
+            raise AssertionError(f"lifecycle step {i}: loss {loss}")
+        d, rounds = _launch_delta(at), table_ops.plan_insert.rounds - r0
+        # LFU/TTL keeps scores: touch adds freq (a K3 add) and sets last (a set)
+        want = {"row_gather": 4 + rounds, "row_scatter_set": 2, "row_scatter_add": 2,
+                "row_merge_add": 3}
+        if on_card and d != want:
+            raise AssertionError(f"lifecycle step {i} launched {d}, not {want}")
+        step_launches = d
+        if (i + 1) % LIFE_EVERY:
+            continue
+        off = tr._evict_cursor
+        ids, want_rows = _expected_export(_window_copy(tr.shard, off, policy.evict_scan_buckets),
+                                          policy, tr.step)
+        sync(dev)
+        at = launches()
+        t0 = time.perf_counter()
+        n = tr.maintenance()["evicted"]
+        sync(dev)
+        pass_ms.append((time.perf_counter() - t0) * 1e3)
+        pass_launches = _launch_delta(at)
+        want = {"row_gather": 3, "row_scatter_set": 2, "row_scatter_add": 0, "row_merge_add": 0}
+        if on_card and pass_launches != want:
+            raise AssertionError(f"a maintenance pass launched {pass_launches}, not {want}")
+        if n != len(ids) or n == 0:
+            raise AssertionError(f"pass at bucket {off} evicted {n} rows; the plain rule on the "
+                                 f"window's copy selects {len(ids)}")
+        _check_spilled(store, ids, want_rows, cfg.dim)
+        if bool(_found(tr.spec, tr.shard, torch.from_numpy(ids).to(dev)).any()):
+            raise AssertionError("evicted ids still probe as present")
+        evicted += n
+        last_ids = ids
+    c1 = tr.counters()
+    spilled = c1["spills"] - c0["spills"]
+    if not evicted == c1["evictions"] - c0["evictions"] == spilled == len(store) > 0:
+        raise AssertionError(f"evicted {evicted}, counted {c1['evictions'] - c0['evictions']}, "
+                             f"spilled {spilled}, spill tier holds {len(store)}")
+    sync(dev)
+    t0 = time.perf_counter()
+    inv = table_ops.check_invariants(tr.spec, tr.shard)
+    inv_s = time.perf_counter() - t0
+    if any(inv.values()):
+        raise AssertionError(f"invariants after the last pass: {inv}")
+    step_ms, pass_ms = np.asarray(step_ms), np.asarray(pass_ms)
+    log(f"lifecycle: {LIFE_STEPS} steps of {bsz} x 26 ids (drift 500 a step) on the live table "
+        f"at step {table.step}+, LFU (freq < 2) / TTL (20 steps), a pass every {LIFE_EVERY} steps "
+        f"over {policy.evict_scan_buckets} of {nb} buckets, <= {LIFE_EVICT} rows, into "
+        f"HostKVStore; step p50 {np.percentile(step_ms, 50):.3f} ms on {card}")
+    log(f"lifecycle: {len(pass_ms)} passes evicted {evicted} rows ({evicted // len(pass_ms)} a "
+        f"pass), spilled {spilled}, spill tier {len(store)} rows; pass p50 "
+        f"{np.percentile(pass_ms, 50):.3f} ms ({', '.join(f'{x:.2f}' for x in pass_ms)} ms), "
+        f"{evicted / (pass_ms.sum() / 1e3):.0f} rows evicted + spilled a s on {card}; each "
+        f"pass's spilled rows equal the window's planes before it, bit for bit, and its ids "
+        f"probe absent")
+    log(f"lifecycle: launches of a step {step_launches}, of a maintenance pass {pass_launches}")
+    log(f"lifecycle: check_invariants over {tr.spec.capacity} slots in {_ms(inv_s)} on "
+        f"{card}: {inv}")
+
+    # removal of assigned ids (some may have been evicted already)
+    rm = torch.unique(assigned[:min(LIFE_REMOVE, assigned.shape[0] // 2)])
+    present = int(_found(table.spec, table.shard, rm).sum())
+    e0 = table.counters()["erases"]
+    sync(dev)
+    t0 = time.perf_counter()
+    removed = table.remove(rm)
+    sync(dev)
+    rm_s = time.perf_counter() - t0
+    erases = table.counters()["erases"] - e0
+    if not removed == erases == present or bool(_found(table.spec, table.shard, rm).any()):
+        raise AssertionError(f"remove of {rm.shape[0]} ids: {present} present before, "
+                             f"{removed} removed, erases +{erases}, or some still found")
+    inv = table_ops.check_invariants(table.spec, table.shard)
+    if any(inv.values()):
+        raise AssertionError(f"invariants after remove: {inv}")
+    log(f"lifecycle: remove of {rm.shape[0]} assigned ids ({present} still present) in "
+        f"{_ms(rm_s)} ({rm.shape[0] / rm_s:.0f} ids/s) on {card}; none found after, "
+        f"invariants {inv}")
+
+    # promotion: spilled ids looked up by a table on the live shard
+    pids = last_ids[:LIFE_PROMOTE]
+    payload, found = store.lookup_batch(pids)
+    if not found.all():
+        raise AssertionError("ids of the last pass are missing from the spill tier")
+    pt = DynamicEmbeddingTable(cfg, device=dev, spill=store, shard=table.shard)
+    pt.step = tr.step
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        pt.lookup(pids, train=True)  # misses: fresh rows, and the promoter is fed
+        sync(dev)
+        t1 = time.perf_counter()
+        pt._promoter.flush()
+        t2 = time.perf_counter()
+        pt.lookup(pids, train=True)  # drains: the spilled state overwrites them
+        sync(dev)
+        promo_s = time.perf_counter() - t0
+        parts = f"first lookup {_ms(t1 - t0)}, flush {_ms(t2 - t1)}, draining lookup " \
+                f"{_ms(promo_s - (t2 - t0))}"
+        rows = pt.lookup(pids, train=False).cpu().numpy()
+        if not np.array_equal(rows.view(np.int32), payload[:, :cfg.dim].view(np.int32)):
+            raise AssertionError("promoted rows differ from their spilled payload")
+        if pt.counters()["promotes"] != len(pids) or store.lookup_batch(pids)[1].any():
+            raise AssertionError(f"promotes {pt.counters()['promotes']} of {len(pids)}, or "
+                                 "promoted ids still in the spill tier")
+    finally:
+        pt._promoter.close()
+    log(f"lifecycle: promotion of {len(pids)} spilled ids (train lookup, flush, train "
+        f"lookup) in {_ms(promo_s)} ({parts}) on {card}: rows equal their spilled payload bit "
+        f"for bit, "
+        f"promotes {len(pids)}, gone from the spill tier")
+    return {"trainer": tr, "policy": policy, "pass_ms": pass_ms, "evicted": evicted}
+
+
+def _fill(table, rows: int, seed: int, dev) -> None:
+    """Assign `rows` random rows (ids and values from `seed`) in batches of
+    65,536."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for o in range(0, rows, 1 << 16):
+        n = min(1 << 16, rows - o)
+        table.assign(torch.randint(1, 2**62, (n,), device=dev, dtype=torch.int64, generator=g),
+                     (torch.rand((n, table.spec.dim), device=dev, generator=g) - 0.5) * 0.1)
+
+
+def _same_rows(got: dict, want: dict, what: str) -> None:
+    """Export arrays equal row for row by id, bit for bit."""
+    og, ow = np.argsort(got["ids"]), np.argsort(want["ids"])
+    for k in want:
+        a, b = got[k][og], want[k][ow]
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def lifecycle_depth(args, dev, card: str) -> None:
+    """Part b, at the same width and reduced depth: checkpoints (async and
+    streamed) of a Trainer on a 2^23-slot table restored bit for bit, then
+    online growth to 2^24 slots through a train lookup."""
+    rehearse = args.rehearse_on_cpu
+    cap = 1 << 14 if rehearse else LIFE_DEPTH_CAP
+    nrows = 11_700 if rehearse else LIFE_DEPTH_ROWS  # load 0.715 either way
+    part_rows = 1 << 13 if rehearse else LIFE_PART_ROWS
+    bsz = args.batch if rehearse else TRAIN_BATCH
+    cfg = TableConfig(dim=32, capacity=cap)
+    table = DynamicEmbeddingTable(cfg, device=dev)
+    _fill(table, nrows, args.seed + 37, dev)
+    landed = len(table)
+    tr = Trainer(RunConfig(batch_size=bsz, steps=5, seed=args.seed), cfg, ModelConfig(),
+                 device=dev, generator=torch.Generator().manual_seed(args.seed + 41),
+                 shard=table.shard)
+    batches = list(SyntheticStream(SyntheticConfig(batch_size=bsz, seed=args.seed + 43))
+                   .batches(5))
+    for b in batches[:3]:
+        tr.train_step(b)
+    root = ROOT / "build" / "chip_smoke" / "lifecycle"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env = os.environ.get("MEEPO_CKPT_CHUNK_ROWS")
+    os.environ["MEEPO_CKPT_CHUNK_ROWS"] = str(part_rows)
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        tr.save_checkpoint(str(root / "async"), async_=True)
+        snap_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want_a = (export_shard_arrays(tr.spec, tr.shard), tr._dense(), tr.step)
+        export_s = time.perf_counter() - t0
+        for b in batches[3:]:
+            tr.train_step(b)
+        t0 = time.perf_counter()
+        tr.finish_saves()
+        wait_s = time.perf_counter() - t0
+        sync(dev)
+        t0 = time.perf_counter()
+        m = tr.save_checkpoint(str(root / "sync"))
+        save_s = time.perf_counter() - t0
+        want_s = (export_shard_arrays(tr.spec, tr.shard), tr._dense(), tr.step)
+        gdir = root / "sync" / m["dir"]
+        nbytes = sum(f.stat().st_size for f in gdir.iterdir())
+        parts = sorted(f.name for f in gdir.iterdir() if ".part" in f.name)
+        rows = m["counts"][0]
+        log(f"lifecycle: a Trainer on a {cap}-slot table filled to {landed} rows by assign, "
+            f"{len(batches)} steps of {bsz} x 26 ids; async save: {_ms(snap_s)} on the caller's "
+            f"thread (the snapshot; the same export again, the check's copy, {_ms(export_s)}), "
+            f"joined {_ms(wait_s)} after that copy and 2 more steps; streamed "
+            f"save of {rows} rows in {len(parts)} parts of {part_rows} rows: {_ms(save_s)}, "
+            f"{rows / save_s:.0f} rows/s, {nbytes / save_s / 1e6:.1f} MB/s ({nbytes} bytes) on "
+            f"{card}")
+        for name, (want, dense, step) in (("async", want_a), ("sync", want_s)):
+            t = DynamicEmbeddingTable(cfg, device=dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            got_m = t.load(str(root / name))
+            sync(dev)
+            load_s = time.perf_counter() - t0
+            if got_m["step"] != step:
+                raise AssertionError(f"{name} checkpoint at step {got_m['step']}, saved at {step}")
+            _same_rows(export_shard_arrays(t.spec, t.shard), want, f"{name} checkpoint")
+            for leaf_name in ("params", "opt_state"):
+                for x, y in zip(load_dense(str(root / name), leaf_name), dense[leaf_name],
+                                strict=True):
+                    if x.dtype != y.dtype or not np.array_equal(x, y):
+                        raise AssertionError(f"{name} checkpoint: a {leaf_name} leaf differs")
+            log(f"lifecycle: {name} checkpoint restored {len(t)} rows in {_ms(load_s)} "
+                f"({len(t) / load_s:.0f} rows/s) on {card}: ids, values, freq, last, accum and "
+                f"every dense leaf equal the trainer's at step {step}, bit for bit")
+            del t
+        t2 = Trainer(RunConfig(batch_size=bsz), cfg, ModelConfig(), device=dev)
+        t2.load_checkpoint(str(root / "sync"))
+        for x, y in zip(to_jax_params(t2.model), want_s[1]["params"], strict=True):
+            if not np.array_equal(x, y):
+                raise AssertionError("Trainer.load_checkpoint: a parameter differs")
+        del t2, tr, table
+    finally:
+        shutil.rmtree(root.parent, ignore_errors=True)
+        if env is None:
+            os.environ.pop("MEEPO_CKPT_CHUNK_ROWS")
+        else:
+            os.environ["MEEPO_CKPT_CHUNK_ROWS"] = env
+
+    gt = DynamicEmbeddingTable(dataclasses.replace(cfg, grow_at_load=0.75), device=dev)
+    _fill(gt, nrows, args.seed + 37, dev)
+    before = export_shard_arrays(gt.spec, gt.shard)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 47)
+    new = torch.randint(1, 2**62, (cap // 16,), device=dev, dtype=torch.int64, generator=g)
+    sync(dev)
+    t0 = time.perf_counter()
+    gt.lookup(new, train=True)
+    sync(dev)
+    grow_s = time.perf_counter() - t0
+    if gt.spec.capacity != 2 * cap:
+        raise AssertionError(f"the table holds {gt.spec.capacity} slots after growth, not {2 * cap}")
+    after = export_shard_arrays(gt.spec, gt.shard)
+    keep = np.isin(after["ids"], before["ids"])
+    if int(keep.sum()) != before["ids"].shape[0]:
+        raise AssertionError("growth lost rows")
+    _same_rows({k: v[keep] for k, v in after.items()}, before, "growth")
+    log(f"lifecycle: growth: a {cap}-slot table (grow_at_load 0.75) of {before['ids'].shape[0]} "
+        f"rows looked up {new.shape[0]} new ids (train=True) and grew to {gt.spec.capacity} "
+        f"slots in {_ms(grow_s)} ({before['ids'].shape[0] / grow_s:.0f} rows rehashed a s, the "
+        f"lookup included) on {card}; every earlier row's planes kept bit for bit")
+
+
+def time_lifecycle_kernels(tr, policy, seed: int) -> list:
+    """The lifecycle's new call shapes on the live table, as the timing
+    phase times the others: the evict window's gather (4 planes, K bucket
+    rows), the export's gathers (4-byte planes and values at E slots) and
+    the clears (5 bucket planes set to scalars, and values rows to 0), at
+    free slots so that the live table keeps its contents."""
+    shard, spec = tr.shard, tr.spec
+    dev = shard.values.device
+    g = torch.Generator(device=dev).manual_seed(seed + 53)
+    nb, K, E = spec.num_buckets, policy.evict_scan_buckets, policy.max_evict_per_pass
+    out = []
+    wins = [((k * 9973 * K + torch.arange(K, device=dev)) % nb).to(torch.int32) for k in range(8)]
+    out.append(("row_gather", gather_entry(
+        f"evict window: key_hi, key_lo, freq, last (K = {K} bucket rows)",
+        [shard.key_hi, shard.key_lo, shard.freq, shard.last], wins)))
+    live = hashing.is_valid(shard.key_hi, shard.key_lo).view(-1)
+
+    def sample(idx):  # E distinct entries of idx, a new tensor each (no view of a perm)
+        return idx[torch.randperm(idx.shape[0], device=dev, generator=g)[:E]].sort().values
+
+    live_idx = live.nonzero()[:, 0]
+    slots = [sample(live_idx).to(torch.int32) for _ in range(8)]
+    flat = [p.view(-1, 1) for p in (shard.key_hi, shard.key_lo, shard.freq, shard.opt_rowwise[0])]
+    out.append(("row_gather", gather_entry(
+        "evict export: key_hi, key_lo, freq, accum per pass", flat, slots)))
+    out.append(("row_gather", gather_entry("evict export: values per pass", shard.values, slots)))
+    free_idx = (~live).nonzero()[:, 0]
+    del live, live_idx
+    frees = [sample(free_idx) for _ in range(8)]
+    five = [p.view(-1, 1) for p in (shard.key_hi, shard.key_lo, shard.freq, shard.last,
+                                    shard.opt_rowwise[0])]
+    scalars = [hashing.EMPTY_HI, hashing.EMPTY_LO, 0, 0, 0.0]
+    sets = [(f.to(torch.int32), f, scalars) for f in frees]
+    out.append(("row_scatter_set", multi_set_entry(
+        "evict clear: key_hi, key_lo, freq, last, accum (scalars, free slots)", five, sets, g)))
+    vals = shard.values
+    zero = torch.zeros((), dtype=vals.dtype, device=dev)
+    frees32 = [f.to(torch.int32) for f in frees]
+
+    def clear_check():
+        got, want = vals.clone(), vals.clone()
+        for f, f32 in zip(frees[:2], frees32):
+            got[f] = 1.0
+            want[f] = 1.0
+            row_scatter_set_multi([got], f32, [0])
+            row_scatter_set_multi_plain([want], f32, [0])
+        return max_abs_err("row_scatter_set_multi", got, want)
+
+    out.append(("row_scatter_set", entry(
+        "evict clear: values rows = 0 (a scalar, free slots)",
+        f"{tuple(vals.shape)} {vals.dtype}, n={E}",
+        4 * E + E * spec.dim * vals.element_size(),  # indices, rows written
+        [lambda f=f: row_scatter_set_multi([vals], f, [0]) for f in frees32],
+        [lambda f=f: row_scatter_set_multi_plain([vals], f, [0]) for f in frees32],
+        [lambda f=f: vals.index_put_((f,), zero) for f in frees],
+        clear_check,
+        "row_set_kernel",
+    )))
+    log_timings(out)
+    return out
+
+
 # --- main ----------------------------------------------------------------------
 
 def main() -> int:
@@ -1377,6 +1800,8 @@ def main() -> int:
         log("rehearsal on the CPU: plain versions, no build, no timing, no result")
         res = serve(args, cpu, rng, "the CPU (rehearsal)")
         train(args, res["svc"].table, cpu, "the CPU (rehearsal)")
+        lifecycle_live(args, res["svc"].table, res["assigned"], cpu, "the CPU (rehearsal)")
+        lifecycle_depth(args, cpu, "the CPU (rehearsal)")
         log(f"rehearsal finished in {time.perf_counter() - t_start:.1f} s")
         return 1
 
@@ -1444,6 +1869,19 @@ def main() -> int:
     timings = time_kernels(res["svc"], res["requests"], args.seed)
     timings += time_train_kernels(tres["trainer"], tres["spare"][4], args.seed)
     profile_phase(res["svc"], res["requests"], args.seed)
+
+    # the lifecycle path, with the counters set to 0 just before it
+    reset_launches()
+    t0 = time.perf_counter()
+    life = lifecycle_live(args, res["svc"].table, res["assigned"], cuda, card)
+    lifecycle_depth(args, cuda, card)
+    life_counts = launches()
+    log(f"lifecycle: path finished in {time.perf_counter() - t0:.1f} s; launches {life_counts} "
+        f"on {card}")
+    for name, count in life_counts.items():
+        if count <= 0:
+            raise AssertionError(f"the lifecycle path never launched {name}")
+    timings += time_lifecycle_kernels(life["trainer"], life["policy"], args.seed)
     meta = {
         "row_gather": ("meepoembedding_tpu_torch/csrc/row_gather.cu",
                        "meepoembedding_tpu/table/pallas_ops.py:58"),
@@ -1464,6 +1902,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": train_counts[name], "launches_serve": serve_counts[name],
+            "launches_lifecycle": life_counts[name],
             "max_abs_err": max(t["max_abs_err"] for t in mine), "ms": e["ms"],
             "device_ms": e["device_ms"], "kernel_ms": e["kernel_ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": "bytes",

@@ -1,18 +1,33 @@
-"""Checkpoint restore (port of the reading half of
-`meepoembedding_tpu/checkpoint.py`: :111-136, :186-228, :346-348, :607-797).
+"""Checkpoints in the reference's format (port of
+`meepoembedding_tpu/checkpoint.py`: the writer, :54-523, and the reader,
+:607-797; `save_sharded2d` and the multi-process barriers belong to the
+`parallel/` slice).
 
-The on-disk format is the reference's, so a checkpoint written by the JAX
-package restores here with bit-exact rows:
+The on-disk format is the reference's, so a checkpoint written by either
+package restores into the other with bit-exact rows:
 
-  manifest.json       {"format", "num_shards", "dim", "step", "value_dtype",
-                       "optimizer", "counts", "counters", "dir", "dense", ...}
-  <dir>/shard-SSSSS.npz or shard-SSSSS.partPPPP.npz
-                      ids i64[n], values [n, dim], freq i32[n], last i32[n],
-                      accum f32[n], full0.. [n, dim]; bf16 arrays are stored
-                      as raw uint16 bits under "<name>@bf16"
-  <dir>/shard-SSSSS.colCC.npz   column-sharded blocks, merged on read
-  <dir>/dense-<name>.npz        dense pytree leaves leaf0, leaf1, ... in
-                                jax.tree_util flatten order
+  manifest.json       {"format", "num_shards", "dim", "capacity_per_shard",
+                       "step", "value_dtype", "optimizer", "counts",
+                       "counters", "dir", "dense", "extras"}
+  step-N[.k]/         one generation directory a save; the manifest's "dir"
+    shard-SSSSS.partPPPP.npz   streamed parts: ids i64[n], values [n, dim],
+                      freq i32[n], last i32[n], accum f32[n], full0..
+                      [n, dim], in ascending live-slot order, plus the
+                      resume metadata n_live, chunk_rows, row_off; bf16
+                      arrays are stored as raw uint16 bits under
+                      "<name>@bf16"
+    shard-SSSSS.npz   the single-file layout of an async save (f32 rows)
+    shard-SSSSS.counters.npy   the shard's lifetime counters
+    shard-SSSSS.colCC.npz      column-sharded blocks, merged on read
+    dense-<name>.npz  dense pytree leaves leaf0, leaf1, ... in
+                      jax.tree_util flatten order
+
+A save writes a fresh generation directory, every file through an atomic
+rename, and commits by writing the manifest last; stale generations are
+pruned after the commit, so a save that dies midway leaves the previous
+checkpoint loadable. `MEEPO_CKPT_CHUNK_ROWS` (rows a part, 2^22) and
+`MEEPO_CKPT_COMPRESS=1` (deflated parts) set the layout, as in the
+reference.
 
 Restore rehashes every saved row into a fresh shard, batch by batch. Slot
 placement depends on the batches, so they are the reference's: rows in file
@@ -24,18 +39,345 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Iterator, List, Tuple
+import shutil
+import tempfile
+import threading
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from meepoembedding_tpu_torch.kernels import row_gather_multi
 from meepoembedding_tpu_torch.table import hashing, table_ops
-from meepoembedding_tpu_torch.table.layout import TableShard, TableSpec, alloc_shard
+from meepoembedding_tpu_torch.table.layout import TableShard, TableSpec, alloc_shard, live_mask
 
 FORMAT_VERSION = 1
 _RESTORE_BATCH = 1 << 16
 _META = ("n_live", "chunk_rows", "row_off")  # part-file resume metadata
+_EXPORT_CHUNK = 1 << 22  # live rows gathered a chunk: 512 MiB of f32 rows at dim 32
 
+
+# --- shard export ------------------------------------------------------------
+
+def _live_slot_index(shard: TableShard) -> torch.Tensor:
+    """int32 [n_live] of every live slot, ascending: one nonzero pass, which
+    the callers slice into chunks."""
+    (idx,) = live_mask(shard).view(-1).nonzero(as_tuple=True)
+    return idx.to(torch.int32)
+
+
+def _fetch_chunk(shard: TableShard, slots: torch.Tensor) -> dict:
+    """The rows of live `slots` on the host as CPU tensors of their raw
+    types (a bf16 table's values cross to the host as 2-byte rows): the
+    4-byte bucket planes gathered in groups of up to 4 planes a launch, the
+    values and full-dim planes in one. The copies to the host are
+    synchronous, so the arrays are a snapshot when this returns."""
+    flat = [p.view(-1, 1) for p in
+            (shard.key_hi, shard.key_lo, shard.freq, shard.last, *shard.opt_rowwise[:1])]
+    cols = row_gather_multi(flat[:4], slots)
+    if flat[4:]:
+        cols += row_gather_multi(flat[4:], slots)
+    hi, lo, freq, last, *accum = (c.view(-1).cpu() for c in cols)
+    vals = table_ops.gather_values_multi((shard.values, *shard.opt_fulldim), slots)
+    part = {
+        "ids": torch.from_numpy(hashing.join_ids(hi.numpy(), lo.numpy())),
+        "values": vals[0].cpu(),
+        "freq": freq,
+        "last": last,
+    }
+    if accum:
+        part["accum"] = accum[0]
+    for j, plane in enumerate(vals[1:]):
+        part[f"full{j}"] = plane.cpu()
+    return part
+
+
+def _encode_arrays(arrs: dict) -> dict:
+    """npz-storable numpy arrays: bfloat16 tensors ride as their raw uint16
+    bits under a `<name>@bf16` key (numpy has no bf16), float64 narrows to
+    float32, the rest is stored as it is."""
+    out = {}
+    for k, a in arrs.items():
+        if isinstance(a, torch.Tensor):
+            if a.dtype == torch.bfloat16:
+                out[f"{k}@bf16"] = a.view(torch.int16).numpy().view(np.uint16)
+                continue
+            a = a.numpy()
+        out[k] = np.asarray(a, np.float32) if a.dtype == np.float64 else a
+    return out
+
+
+def export_shard_arrays(spec: TableSpec, shard: TableShard) -> dict:
+    """All live rows of one shard as host numpy arrays, in ascending slot
+    order, values and full-dim planes widened to f32 (exactly, from bf16):
+    the async save's snapshot and `regrow_shard`'s source. Gathered on the
+    device in chunks of `_EXPORT_CHUNK` live slots."""
+    n_live = int(shard.cnt.sum())
+    if not n_live:
+        return _empty_shard_arrays(spec)
+    idx = _live_slot_index(shard)[:n_live]
+    parts = []
+    for o in range(0, n_live, _EXPORT_CHUNK):
+        part = _fetch_chunk(shard, idx[o:o + _EXPORT_CHUNK])
+        parts.append({k: (v.float() if v.is_floating_point() else v).numpy()
+                      for k, v in part.items()})
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _empty_shard_arrays(spec: TableSpec) -> dict:
+    out = {
+        "ids": np.zeros((0,), np.int64),
+        "values": np.zeros((0, spec.dim), np.float32),
+        "freq": np.zeros((0,), np.int32),
+        "last": np.zeros((0,), np.int32),
+    }
+    if spec.optimizer.num_rowwise_slots():
+        out["accum"] = np.zeros((0,), np.float32)
+    for j in range(spec.optimizer.num_fulldim_slots()):
+        out[f"full{j}"] = np.zeros((0, spec.dim), np.float32)
+    return out
+
+
+def _part_name(i: int, p: int) -> str:
+    return f"shard-{i:05d}.part{p:04d}.npz"
+
+
+def _counters_name(i: int) -> str:
+    # deliberately not matching _shard_files' part glob
+    return f"shard-{i:05d}.counters.npy"
+
+
+def _write_counters_sidecar(gdir: str, i: int, counters) -> None:
+    c = counters.cpu().numpy() if isinstance(counters, torch.Tensor) else np.asarray(counters)
+    _atomic_write(os.path.join(gdir, _counters_name(i)), lambda f: np.save(f, c))
+
+
+def _read_counters(gdir: str, num_shards: int):
+    """Sum of all shards' counter sidecars, or None when one is missing."""
+    total = None
+    for i in range(num_shards):
+        p = os.path.join(gdir, _counters_name(i))
+        if not os.path.exists(p):
+            return None
+        c = np.load(p)
+        total = c if total is None else total + c
+    return total
+
+
+def save_shard_streamed(gdir: str, shard_id: int, spec: TableSpec, shard: TableShard,
+                        chunk_rows: int, compress: bool = False) -> int:
+    """Write one shard as part files, each `chunk_rows` live rows of the
+    ascending live-slot enumeration, committed one by one through atomic
+    renames. Re-running the same save (same table state) skips the parts
+    that exist without gathering them again, so an interrupted save resumes
+    at its first missing part; a part cut from another live count or chunk
+    size aborts the resume rather than mixing states. Values (and a bf16
+    table's full-dim planes) keep their raw type; `compress=True` deflates
+    every part. Stale parts of a higher index are deleted. Returns the live
+    row count."""
+    n_live = int(shard.cnt.sum())
+    expected = -(-n_live // chunk_rows) if n_live else 0
+    idx_all = None
+    savez = np.savez_compressed if compress else np.savez
+
+    def write(path, arrs, o):
+        arrs = _encode_arrays(arrs)
+        arrs["n_live"] = np.int64(n_live)
+        arrs["chunk_rows"] = np.int64(chunk_rows)
+        arrs["row_off"] = np.int64(o)
+        _atomic_write(path, lambda f: savez(f, **arrs))
+
+    for p in range(expected):
+        path = os.path.join(gdir, _part_name(shard_id, p))
+        if os.path.exists(path):
+            with np.load(path) as z:
+                got = int(z["n_live"])
+                # parts cut at another chunk size cover other row ranges
+                got_chunk = int(z["chunk_rows"]) if "chunk_rows" in z.files else -1
+            if got != n_live or got_chunk != chunk_rows:
+                raise RuntimeError(
+                    f"resume mismatch: {path} was cut from a table with {got} live rows "
+                    f"at chunk_rows={got_chunk}, current save has {n_live} live rows at "
+                    f"chunk_rows={chunk_rows}; delete the stale generation dir to start "
+                    "a fresh save"
+                )
+            continue
+        if idx_all is None:
+            idx_all = _live_slot_index(shard)
+        o = p * chunk_rows
+        write(path, _fetch_chunk(shard, idx_all[o:min(n_live, o + chunk_rows)]), o)
+    if expected == 0:
+        # an empty shard writes one empty part: the reader's contract stays uniform
+        path = os.path.join(gdir, _part_name(shard_id, 0))
+        if not os.path.exists(path):
+            write(path, _empty_shard_arrays(spec), 0)
+    # leftovers of a higher index would be read as extra rows
+    prefix = f"shard-{shard_id:05d}.part"
+    for name in os.listdir(gdir):
+        if name.startswith(prefix) and name.endswith(".npz"):
+            try:
+                p = int(name[len(prefix):-4])
+            except ValueError:
+                continue
+            if p >= max(expected, 1):
+                os.unlink(os.path.join(gdir, name))
+    return n_live
+
+
+def _atomic_write(path: str, write_fn) -> None:
+    d = os.path.dirname(path) or "."
+    fd, tmp = tempfile.mkstemp(dir=d, prefix=".tmp-ckpt-")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            write_fn(f)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def _gen_name(path: str, step: int) -> str:
+    """A fresh generation directory name for this save: never the one the
+    committed manifest names (a re-save at the same step gets a .k suffix),
+    so the save in flight cannot clobber the live checkpoint."""
+    base = f"step-{int(step)}"
+    try:
+        cur = read_manifest(path).get("dir", "")
+    except (FileNotFoundError, json.JSONDecodeError):
+        return base
+    if cur == base:
+        return base + ".1"
+    if cur.startswith(base + "."):
+        try:
+            return f"{base}.{int(cur.rsplit('.', 1)[1]) + 1}"
+        except ValueError:
+            return base + ".1"
+    return base
+
+
+def _prune_generations(path: str, keep: str) -> None:
+    """Remove stale step-* generation directories (crashed or superseded)."""
+    for name in os.listdir(path):
+        if name.startswith("step-") and name != keep:
+            full = os.path.join(path, name)
+            if os.path.isdir(full):
+                shutil.rmtree(full, ignore_errors=True)
+
+
+def save(path: str, spec: TableSpec, shards: Sequence[TableShard], step: int,
+         extras: Optional[dict] = None, dense: Optional[dict] = None) -> dict:
+    """Write a checkpoint directory from a list of shards (`save_sharded`
+    with every shard in this process)."""
+    return save_sharded(path, spec, dict(enumerate(shards)), len(shards), step,
+                        extras=extras, dense=dense)
+
+
+class AsyncCheckpointer:
+    """Saves that return before the files are written. The caller's thread
+    takes the snapshot: every shard's live rows and counters copied to host
+    memory (`export_shard_arrays`, synchronous copies), and the dense leaves
+    copied, so that later steps, which update the planes and the tower in
+    place, cannot reach it. A background thread writes the files and
+    commits the manifest. At most one save is in flight: `save()` joins the
+    previous one first, and `wait()` re-raises a background failure."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._err: Optional[BaseException] = None
+        self.saves = 0
+
+    def save(self, path: str, spec: TableSpec, shards: Sequence[TableShard], step: int,
+             extras: Optional[dict] = None, dense: Optional[dict] = None) -> None:
+        self.wait()
+        arrs_by_id = {
+            i: dict(export_shard_arrays(spec, sh), counters=sh.counters.cpu().numpy().copy())
+            for i, sh in enumerate(shards)
+        }
+        dense_np = {k: [np.array(x) for x in leaves] for k, leaves in (dense or {}).items()}
+
+        def work():
+            try:
+                save_sharded(path, spec, arrs_by_id, len(arrs_by_id), step,
+                             extras=extras, dense=dense_np)
+            except BaseException as e:  # surfaced by the next wait() or save()
+                self._err = e
+
+        self._thread = threading.Thread(target=work, name="meepo-async-ckpt", daemon=True)
+        self._thread.start()
+        self.saves += 1
+
+    def wait(self) -> None:
+        """Join the save in flight, if any; re-raise its failure."""
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join()
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+
+def save_sharded(path: str, spec: TableSpec, shards_by_id: dict, num_shards: int, step: int,
+                 extras: Optional[dict] = None, dense: Optional[dict] = None) -> dict:
+    """The reference's checkpoint protocol in one process, which is its
+    coordinator: each shard's files (streamed parts, or the single-file
+    layout for a shard given as exported arrays), its counters sidecar, the
+    dense leaves ({name: leaves in flatten order}), then the manifest, the
+    commit point, and the pruning of stale generations. Returns the
+    manifest."""
+    os.makedirs(path, exist_ok=True)
+    gen = _gen_name(path, step)
+    gdir = os.path.join(path, gen)
+    os.makedirs(gdir, exist_ok=True)
+    chunk_rows = int(os.environ.get("MEEPO_CKPT_CHUNK_ROWS", 1 << 22))
+    compress = os.environ.get("MEEPO_CKPT_COMPRESS", "0") == "1"
+    for i, shard in shards_by_id.items():
+        if isinstance(shard, dict):
+            arrs = dict(shard)
+            counters = arrs.pop("counters", None)
+            if counters is not None:
+                _write_counters_sidecar(gdir, i, counters)
+            _atomic_write(os.path.join(gdir, f"shard-{i:05d}.npz"),
+                          lambda f, arrs=arrs: np.savez(f, **arrs))
+        else:
+            save_shard_streamed(gdir, i, spec, shard, chunk_rows, compress=compress)
+            _write_counters_sidecar(gdir, i, shard.counters)
+    dense = dense or {}
+    for name, leaves in dense.items():
+        flat = {f"leaf{j}": np.asarray(x) for j, x in enumerate(leaves)}
+        _atomic_write(os.path.join(gdir, f"dense-{name}.npz"),
+                      lambda f, flat=flat: np.savez(f, **flat))
+    counts = []
+    for i in range(num_shards):
+        n = 0
+        for f in _shard_files(gdir, i):
+            with np.load(f) as z:
+                n += int(z["ids"].shape[0])
+        counts.append(n)
+    manifest = {
+        "format": FORMAT_VERSION,
+        "num_shards": num_shards,
+        "dim": spec.dim,
+        "capacity_per_shard": spec.capacity,
+        "step": int(step),
+        "value_dtype": spec.value_dtype,
+        "optimizer": {
+            "kind": spec.optimizer.kind,
+            "rowwise_slots": spec.optimizer.num_rowwise_slots(),
+            "fulldim_slots": spec.optimizer.num_fulldim_slots(),
+        },
+        "counts": counts,
+        "dir": gen,
+        "dense": sorted(dense),
+        "extras": extras or {},
+    }
+    saved_counters = _read_counters(gdir, num_shards)
+    if saved_counters is not None:
+        manifest["counters"] = [int(x) for x in saved_counters]
+    _atomic_write(os.path.join(path, "manifest.json"),
+                  lambda f: f.write(json.dumps(manifest, indent=1).encode()))
+    _prune_generations(path, keep=gen)
+    return manifest
 
 def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
     """Raw bfloat16 bits (uint16) -> the exact float32 values."""

@@ -2,19 +2,20 @@
 `meepoembedding_tpu/table/runtime.py`).
 
 It owns the static spec and the device shard and exposes lookups (probe-only
-or insert-on-miss), sparse gradient updates, bulk upserts and checkpoint
-restore. Eviction, removal and online growth are not ported yet: they raise
-and name the item of ROADMAP.md that holds them.
+or insert-on-miss), sparse gradient updates, bulk upserts, eviction with an
+optional spill tier and promotion back from it, key removal, online growth
+by rehash into a table twice the size, and checkpoint save and restore.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
-from meepoembedding_tpu_torch.config import TableConfig
+from meepoembedding_tpu_torch.config import LANES, TableConfig
 from meepoembedding_tpu_torch.kernels import row_gather
 from meepoembedding_tpu_torch.ops import dedup, optim
 from meepoembedding_tpu_torch.table import hashing, table_ops
@@ -27,7 +28,8 @@ from meepoembedding_tpu_torch.table.layout import (
     resolve_device,
 )
 
-_LIFECYCLE = "not ported yet (ROADMAP.md, queue 1, 'Lifecycle')"
+REGROW_BATCH = 1 << 14  # rows a regrow insert batch: slot placement depends on it
+
 
 
 def _ids_tensor(ids64, device) -> torch.Tensor:
@@ -36,30 +38,115 @@ def _ids_tensor(ids64, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(ids64, np.int64).reshape(-1)).to(device)
 
 
+def regrow_shard(old_spec: TableSpec, new_spec: TableSpec, old_shard: TableShard,
+                 step: int) -> TableShard:
+    """Rehash one shard's live rows (values, freq, last and optimizer state)
+    into a fresh shard of `new_spec`'s geometry: the rows go to the host
+    (`checkpoint.export_shard_arrays`, ascending slot order) and are
+    re-inserted in the reference's batches of `REGROW_BATCH` rows, the last
+    one padded with the invalid id, so every row lands in the slot the
+    reference gives it. The counters carry over (the re-inserts add to
+    `inserts`, as in the reference). Peak memory is the old and the new
+    shard plus the host copy."""
+    from meepoembedding_tpu_torch import checkpoint
+
+    dev = old_shard.key_hi.device
+    new_shard = alloc_shard(new_spec, dev)
+    new_shard.counters.copy_(old_shard.counters)
+    arrs = checkpoint.export_shard_arrays(old_spec, old_shard)
+    n = arrs["ids"].shape[0]
+    n_full = new_spec.optimizer.num_fulldim_slots()
+    b = REGROW_BATCH
+    valid_all = torch.arange(b, device=dev)
+    hi_np, lo_np = hashing.split_ids(arrs["ids"])
+    for o in range(0, n, b):
+        cnt = min(n, o + b) - o
+
+        def pick(a, fill=0):
+            x = torch.from_numpy(np.ascontiguousarray(a[o:o + cnt])).to(dev)
+            if cnt < b:
+                x = torch.cat([x, x.new_full((b - cnt,) + x.shape[1:], fill)])
+            return x
+
+        table_ops.insert_rows(
+            new_spec, new_shard, pick(hi_np, hashing.EMPTY_HI), pick(lo_np, hashing.EMPTY_LO),
+            pick(arrs["values"]), valid_all < cnt, step, freq=pick(arrs["freq"]),
+            accum=pick(arrs["accum"]) if "accum" in arrs else None,
+            fulldim=[pick(arrs[f"full{j}"]) for j in range(n_full)] or None,
+            last=pick(arrs["last"]),
+        )
+    return new_shard
+
+
 class DynamicEmbeddingTable:
-    """Hash-keyed embedding table, single shard.
+    """Hash-keyed growable, evictable embedding table, single shard.
 
     >>> t = DynamicEmbeddingTable(TableConfig(dim=16, capacity=1 << 16), device="cpu")
     >>> rows = t.lookup(ids)                   # trains: insert on miss
     >>> t.apply_grads(grads)                   # sparse update of those ids
     >>> t.assign(ids, rows)                    # bulk upsert
     >>> t.lookup(ids, train=False)             # probe-only: unknown ids -> zeros
+    >>> t.evict(); t.remove(ids)               # lifecycle
+
+    `spill` is an optional `KVBackend` cold tier: evicted rows go there, and
+    train lookups that miss promote them back. `shard` starts the table on
+    an existing shard of the same geometry, which it then updates in place.
     """
 
-    def __init__(self, cfg: TableConfig, device="cuda"):
+    def __init__(self, cfg: TableConfig, device="cuda", spill=None,
+                 shard: Optional[TableShard] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec = TableSpec.from_config(cfg, num_shards=1)
-        self.shard: TableShard = alloc_shard(self.spec, self.device)
+        if shard is None:
+            shard = alloc_shard(self.spec, self.device)
+        elif tuple(shard.values.shape) != (self.spec.capacity, self.spec.dim):
+            raise ValueError(f"shard values {tuple(shard.values.shape)} do not match the "
+                             f"table's [{self.spec.capacity}, {self.spec.dim}]")
+        self.shard: TableShard = shard
         self.step = 0
+        self.spill = spill
+        self.spilled_rows = 0
+        self._evict_cursor = 0
         self._last = None  # (slot [U], inverse [npad], n) of the last train lookup
+        self._codec = self._promoter = None
+        if spill is not None:
+            from meepoembedding_tpu_torch.tiering import PromotionEngine, SpillCodec
 
+            self._codec = SpillCodec(self.spec)
+            if spill.width != self._codec.width:
+                raise ValueError(f"spill backend width {spill.width} != codec width "
+                                 f"{self._codec.width} (dim + freq + optimizer slots)")
+            self._promoter = PromotionEngine(self._codec, spill)
+
+    # --- online growth ------------------------------------------------------
+    def _maybe_grow(self, incoming: int) -> None:
+        """Double the capacity until the incoming batch fits under the growth
+        load threshold. Pessimistic: every incoming id counts as an insert,
+        so a burst of new ids is never dropped for capacity."""
+        if self.cfg.grow_at_load is None:
+            return
+        while len(self) + incoming > self.cfg.grow_at_load * self.spec.capacity:
+            self._grow()
+
+    def _grow(self) -> None:
+        """Rehash every live row into a table of twice the capacity
+        (`regrow_shard`)."""
+        old_spec, old_shard = self.spec, self.shard
+        self.cfg = dataclasses.replace(self.cfg, capacity=old_spec.capacity * 2)
+        self.spec = TableSpec.from_config(self.cfg, num_shards=1)
+        self.shard = regrow_shard(old_spec, self.spec, old_shard, self.step)
+
+    # --- host-facing API ----------------------------------------------------
     def lookup(self, ids64, train: bool = True) -> torch.Tensor:
         """[n] int64 ids (numpy or tensor) -> [n, dim] rows on the table's
-        device. `train=True` inserts missed ids (fresh rows take their
+        device. `train=True` first grows the table if the batch could push
+        it past `grow_at_load` and inserts the promotions staged from the
+        spill tier, then inserts missed ids (fresh rows take their
         deterministic init, written into the table now, with their
-        accumulator init) and remembers the slots for `apply_grads`;
-        `train=False` probes only, and unknown ids give zero rows.
+        accumulator init), remembers the slots for `apply_grads` and feeds
+        the misses to the promoter; `train=False` probes only, and unknown
+        ids give zero rows.
 
         The batch pads to the next power of two with the invalid id, as in
         the reference, so its unique order and capacity match exactly."""
@@ -69,24 +156,53 @@ class DynamicEmbeddingTable:
         if npad != n:
             ids = torch.cat([ids, ids.new_full((npad - n,), int(hashing.EMPTY_ID))])
         hi, lo = hashing.split_ids_t(ids)
+        if not train:
+            uniq = dedup.unique_pairs(hi, lo, size=npad)
+            pr = table_ops.probe(self.spec, self.shard, uniq.hi, uniq.lo, uniq.valid)
+            rows = table_ops.lookup_rows(self.shard, torch.where(pr.found, pr.slot, -1))
+            return row_gather(rows, uniq.inverse[:n])
+        self._maybe_grow(n)
+        self._apply_promotions()
+        spec, shard = self.spec, self.shard
         uniq = dedup.unique_pairs(hi, lo, size=npad)
-        if train:
-            if self.cfg.grow_at_load is not None:
-                raise NotImplementedError(f"online growth in lookup(train=True) is {_LIFECYCLE}")
-            spec, shard = self.spec, self.shard
-            ctx = table_ops.lookup_train(spec, shard, uniq.hi, uniq.lo, uniq.valid, self.step)
-            # this API materialises fresh rows at lookup, even if apply_grads
-            # never follows (the trainer folds them into its update instead)
-            table_ops.scatter_add_values(shard.values, ctx.slot, ctx.rows_u, ctx.fresh)
-            if shard.opt_rowwise:
-                table_ops.scatter_add_bucket_plane(
-                    shard.opt_rowwise[0], ctx.slot, spec.optimizer.initial_accumulator,
-                    ctx.fresh)
-            self._last = (ctx.slot, uniq.inverse, n)
-            return row_gather(ctx.rows_u, uniq.inverse[:n]).to(spec.dtype)
-        pr = table_ops.probe(self.spec, self.shard, uniq.hi, uniq.lo, uniq.valid)
-        rows = table_ops.lookup_rows(self.shard, torch.where(pr.found, pr.slot, -1))
-        return row_gather(rows, uniq.inverse[:n])
+        ctx = table_ops.lookup_train(spec, shard, uniq.hi, uniq.lo, uniq.valid, self.step)
+        # this API materialises fresh rows at lookup, even if apply_grads
+        # never follows (the trainer folds them into its update instead)
+        table_ops.scatter_add_values(shard.values, ctx.slot, ctx.rows_u, ctx.fresh)
+        if shard.opt_rowwise:
+            table_ops.scatter_add_bucket_plane(
+                shard.opt_rowwise[0], ctx.slot, spec.optimizer.initial_accumulator,
+                ctx.fresh)
+        self._last = (ctx.slot, uniq.inverse, n)
+        if self._promoter is not None:
+            self._promoter.feed(uniq.hi, uniq.lo, uniq.valid & ~ctx.found)
+        return row_gather(ctx.rows_u, uniq.inverse[:n]).to(spec.dtype)
+
+    def _apply_promotions(self) -> None:
+        """Insert the staged cold->hot promotions into the device table with
+        their spilled state; rows that lose the slot race (a full table)
+        go back to the cold tier with their payload (`respill_failed`)."""
+        if self._promoter is None:
+            return
+        out = self._promoter.drain()
+        if out is None:
+            return
+        from meepoembedding_tpu_torch.tiering import respill_failed
+
+        keys, state = out
+        hi, lo = hashing.split_ids(keys)
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        ok = table_ops.insert_rows(
+            self.spec, self.shard, dev(hi), dev(lo), dev(state["values"]),
+            torch.ones((len(keys),), dtype=torch.bool, device=self.device), self.step,
+            freq=dev(state["freq"]),
+            accum=dev(state["accum"]) if "accum" in state else None,
+            fulldim=[dev(f) for f in state["fulldim"]] or None,
+        )
+        respill_failed(self._promoter, keys, state, ok)
 
     def assign(self, ids64, rows) -> np.ndarray:
         """Bulk upsert of explicit rows (numpy arrays or tensors). Returns the
@@ -113,12 +229,31 @@ class DynamicEmbeddingTable:
         optim.apply_sparse_grads(self.spec, self.shard, slot, g)
         self.step += 1
 
-    def evict(self) -> int:
-        raise NotImplementedError(f"evict is {_LIFECYCLE}")
-
     def remove(self, ids64) -> int:
-        raise NotImplementedError(f"remove is {_LIFECYCLE}")
+        """Free the listed ids' slots (deletion: removed rows do not go to
+        the spill tier; `evict` demotes). Absent ids are a no-op. Returns how
+        many were removed."""
+        uniq = torch.unique(_ids_tensor(ids64, self.device))
+        hi, lo = hashing.split_ids_t(uniq)
+        found = table_ops.erase_keys(self.spec, self.shard, hi, lo, hashing.is_valid(hi, lo))
+        return int(found.sum())
 
+    def evict(self) -> int:
+        """One eviction sweep over the next window of buckets; the evicted
+        rows (values and optimizer state) go to the spill tier, if any.
+        Returns the number of rows evicted."""
+        off = self._evict_cursor
+        self._evict_cursor = table_ops.next_evict_cursor(self.spec, off)
+        export = table_ops.evict_pass(self.spec, self.shard, self.step, off)
+        n = export.count
+        if n and self.spill is not None:
+            from meepoembedding_tpu_torch.tiering import spill_export
+
+            spill_export(self._codec, self.spill, export)
+            self.spilled_rows += n
+        return n
+
+    # --- introspection ------------------------------------------------------
     def __len__(self) -> int:
         return int(self.shard.cnt.sum())
 
@@ -131,7 +266,20 @@ class DynamicEmbeddingTable:
         names = ["hits", "misses", "inserts", "drops", "evictions", "spills", "promotes", "denied"]
         out = {n: int(c[i]) for i, n in enumerate(names)}
         out["erases"] = int(c[ERASES])
+        if self._promoter is not None:
+            out["promotes"] = self._promoter.promoted
+            out["promote_respills"] = self._promoter.respilled
+            out["spilled_resident"] = len(self.spill)
+        # spilling runs on the host, so the device counter never sees it
+        out["spills"] = max(out["spills"], self.spilled_rows)
         return out
+
+    # --- checkpoint ---------------------------------------------------------
+    def save(self, path: str, extras: Optional[dict] = None) -> dict:
+        """Write this table as a one-shard checkpoint directory."""
+        from meepoembedding_tpu_torch import checkpoint
+
+        return checkpoint.save(path, self.spec, [self.shard], self.step, extras=extras)
 
     def load(self, path: str) -> dict:
         """Restore from a checkpoint written with any shard count (rows are
@@ -154,3 +302,21 @@ class DynamicEmbeddingTable:
         self.shard = shards[0]
         self.step = manifest["step"]
         return manifest
+
+    def export_items(self, chunk_buckets: int = 4096) -> Iterator[tuple]:
+        """Stream (ids64, rows, freq, accum) of the live rows to the host as
+        numpy chunks of `chunk_buckets` buckets, in slot order. A bf16 table's
+        rows come widened to f32 (exactly)."""
+        from meepoembedding_tpu_torch import checkpoint
+
+        shard = self.shard
+        for b0 in range(0, self.spec.num_buckets, chunk_buckets):
+            b1 = b0 + chunk_buckets
+            live = hashing.is_valid(shard.key_hi[b0:b1], shard.key_lo[b0:b1])
+            (lanes,) = live.view(-1).nonzero(as_tuple=True)
+            if lanes.shape[0] == 0:
+                continue
+            part = checkpoint._fetch_chunk(shard, (lanes + b0 * LANES).to(torch.int32))
+            freq = part["freq"].numpy()
+            acc = part["accum"].numpy() if "accum" in part else np.zeros_like(freq, np.float32)
+            yield part["ids"].numpy(), part["values"].float().numpy(), freq, acc

@@ -1,5 +1,5 @@
-"""Table storage ops on tensors (port of `meepoembedding_tpu/table/xla_ops.py`,
-the serving and training paths).
+"""Table storage ops on tensors (port of `meepoembedding_tpu/table/xla_ops.py`:
+the serving, training and lifecycle paths).
 
   probe              XOR pair-probing: one row gather of both key planes,
                      viewed as [nb/2, 256] bucket pairs, per two rounds.
@@ -13,6 +13,10 @@ the serving and training paths).
                      and the side-plane writes of fresh keys, with the rows
                      of every unique id (fresh ids: their init) and no write
                      to the values plane.
+  evict_pass         LFU/TTL eviction over a rotating window of buckets,
+                     exporting the evicted rows for the spill tier.
+  erase_keys         explicit key removal.
+  check_invariants   the debug scan of a shard's invariants.
 
 Every row gather goes through `kernels.row_gather_multi` and every row set
 through `kernels.row_scatter_set_multi` (the planes that share an index in
@@ -32,7 +36,7 @@ and the lookup path never takes.
 from __future__ import annotations
 
 import numbers
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,6 +51,8 @@ from meepoembedding_tpu_torch.table import hashing
 from meepoembedding_tpu_torch.table.layout import (
     DENIED,
     DROPS,
+    ERASES,
+    EVICTIONS,
     HITS,
     INSERTS,
     MISSES,
@@ -352,6 +358,172 @@ def lookup_train(spec: TableSpec, shard: TableShard, uh, ul, valid, step: int) -
     at = torch.tensor([HITS, MISSES, INSERTS, DROPS, DENIED], device=events.device)
     shard.counters.index_add_(0, at, events)
     return LookupCtx(slot=slot, found=pr.found, fresh=fresh, rows_u=rows_u)
+
+
+class EvictExport(NamedTuple):
+    """What `evict_pass` hands to the spill tier: E = `max_evict_per_pass`
+    rows, the first `count` of them evicted, the rest fill (sentinel keys,
+    zeros), as in the reference."""
+
+    hi: torch.Tensor  # i32 [E]
+    lo: torch.Tensor  # i32 [E]
+    rows: torch.Tensor  # [E, dim] values, the plane's type
+    freq: torch.Tensor  # i32 [E]
+    accum: torch.Tensor  # f32 [E] rowwise optimizer state (zeros if none)
+    fulldim: Tuple[torch.Tensor, ...]  # each [E, dim] full-dim optimizer slots
+    count: int  # number of valid entries
+
+
+def _flat(plane: torch.Tensor) -> torch.Tensor:
+    """The [nb * 128, 1] view of a bucket plane: one row a slot."""
+    return plane.view(-1, 1)
+
+
+def clear_slots(shard: TableShard, slot: torch.Tensor, sel: torch.Tensor) -> None:
+    """Free the selected (unique) slots in place: the key planes back to the
+    sentinel, freq, last, the accumulator, the values and the full-dim
+    planes to 0 (the state `alloc_shard` gives a free slot), in two set
+    launches, and cnt -= 1 a slot.
+
+    The reference frees a slot by exact subtraction (keys by int32
+    wraparound, floats by x - x == +0) to avoid scatters on the TPU; setting
+    gives the same bits for finite rows. A row holding NaN or inf differs:
+    the reference leaves NaN in its freed slot, the port 0."""
+    idx = set_index(slot, sel)
+    side = [(shard.key_hi, hashing.EMPTY_HI), (shard.key_lo, hashing.EMPTY_LO),
+            (shard.freq, 0), (shard.last, 0)]
+    if shard.opt_rowwise:
+        side.append((shard.opt_rowwise[0], 0.0))
+    scatter_bucket_planes(idx, side)
+    scatter_set_values(idx, [(shard.values, 0)] + [(p, 0) for p in shard.opt_fulldim])
+    # several freed slots may share a bucket: an [nb + 1] buffer takes the
+    # adds, its last element the unselected ones
+    nb = shard.cnt.shape[0]
+    cnt = torch.cat([shard.cnt, shard.cnt.new_zeros(1)])
+    cnt.index_add_(0, torch.where(sel, slot // LANES, nb).long(),
+                   torch.full(slot.shape, -1, dtype=torch.int32, device=slot.device))
+    shard.cnt.copy_(cnt[:nb])
+
+
+def evict_pass(spec: TableSpec, shard: TableShard, step: int,
+               bucket_off: Optional[int] = None) -> EvictExport:
+    """One eviction sweep, in place: select cold rows by policy, export up
+    to `max_evict_per_pass` of them (for the spill tier) and free their
+    slots.
+
+    With `policy.evict_scan_buckets = K` and a `bucket_off`, only the
+    buckets [bucket_off, bucket_off + K) mod nb are scanned: one gather of
+    those bucket rows of the planes the policy reads, so the last window
+    wraps and successive windows tile the ring. `bucket_off=None` (or K
+    None or >= nb) scans every bucket. The rows taken are the first E set
+    lanes in window order (the reference's `nonzero(size=E)`); the exports'
+    gathers use global slots: the 4-byte planes in one launch, values and
+    full-dim planes in another."""
+    pol = spec.policy
+    E, K, nb = pol.max_evict_per_pass, pol.evict_scan_buckets, spec.num_buckets
+    dev = shard.key_hi.device
+    lfu = pol.evict_policy in ("lfu", "lfu_ttl")
+    ttl = pol.evict_policy in ("ttl", "lfu_ttl")
+    planes = [shard.key_hi, shard.key_lo] + [shard.freq] * lfu + [shard.last] * ttl
+    if K is None or K >= nb or bucket_off is None:
+        wrows = torch.arange(nb, dtype=torch.int64, device=dev)
+        win = planes
+    else:
+        wrows = (int(bucket_off) % nb + torch.arange(K, dtype=torch.int64, device=dev)) % nb
+        win = row_gather_multi(planes, wrows.to(torch.int32))
+    cold = torch.zeros(win[0].shape, dtype=torch.bool, device=dev)
+    if lfu:
+        cold |= win[2] < pol.lfu_min_freq
+    if ttl:
+        cold |= (step - win[-1]) > pol.ttl_steps  # int32, wrapping as the reference
+    (idx,) = (hashing.is_valid(win[0], win[1]) & cold).view(-1).nonzero(as_tuple=True)
+    count = min(E, idx.shape[0])
+    sel = torch.arange(E, device=dev) < count
+    idx_c = torch.zeros((E,), dtype=torch.int64, device=dev)
+    idx_c[:count] = idx[:count]
+    # window-local flat index -> global slot, through the wrapped bucket map
+    slot = torch.where(sel, wrows[idx_c // LANES] * LANES + idx_c % LANES, 0).to(torch.int32)
+
+    four = [shard.key_hi, shard.key_lo, shard.freq] + list(shard.opt_rowwise[:1])
+    got = [x.view(-1) for x in row_gather_multi([_flat(p) for p in four], slot)]
+    vals = gather_values_multi((shard.values, *shard.opt_fulldim), slot)
+    clear_slots(shard, slot, sel)
+    shard.counters[EVICTIONS] += count
+
+    keep = sel[:, None]
+    return EvictExport(
+        hi=torch.where(sel, got[0], hashing.EMPTY_HI),
+        lo=torch.where(sel, got[1], hashing.EMPTY_LO),
+        rows=vals[0].masked_fill_(~keep, 0),
+        freq=torch.where(sel, got[2], 0),
+        accum=(torch.where(sel, got[3], 0.0) if shard.opt_rowwise else
+               torch.zeros((E,), dtype=torch.float32, device=dev)),
+        fulldim=tuple(f.masked_fill_(~keep, 0) for f in vals[1:]),
+        count=count,
+    )
+
+
+def next_evict_cursor(spec: TableSpec, cursor: int) -> int:
+    """The next evict-scan window: advance by K buckets modulo nb. The
+    windows wrap, so successive ones tile the bucket ring exactly even when
+    K does not divide nb."""
+    K = spec.policy.evict_scan_buckets
+    nb = spec.num_buckets
+    if K is None or K >= nb:
+        return 0
+    return (cursor + K) % nb
+
+
+def erase_keys(spec: TableSpec, shard: TableShard, uh, ul, valid) -> torch.Tensor:
+    """Explicit removal of deduplicated keys, in place: probe them and free
+    every found slot as eviction does (`clear_slots`). Returns the found
+    mask; absent keys are a no-op. `ovf` is left as it is: probing runs its
+    rounds whatever the buckets hold, so a freed slot mid-chain never hides
+    another key."""
+    pr = probe(spec, shard, uh, ul, valid)
+    clear_slots(shard, torch.where(pr.found, pr.slot, 0), pr.found)
+    shard.counters[ERASES] += pr.found.sum().to(torch.int32)
+    return pr.found
+
+
+def check_invariants(spec: TableSpec, shard: TableShard, chunk_buckets: int = 1 << 15) -> dict:
+    """Violation counts of a shard's invariants, all 0 on a healthy shard
+    (for tests and debug ticks, not the hot path):
+
+      cnt_mismatch      sum over buckets of |live lanes - cnt|
+      bad_placement     live keys outside their probe window
+      dup_keys          live slots whose key another live slot holds too
+      free_values_resid 1 if a free slot's values are not all 0, else 0
+                        (a NaN there reads as 0, as in the reference)
+      load_overflow     buckets with cnt > 128
+
+    The planes are read in chunks of `chunk_buckets` buckets, so no
+    temporary grows with the table beyond the live ids the duplicate check
+    sorts (int64, the joined key)."""
+    nb = spec.num_buckets
+    dev = shard.key_hi.device
+    rounds = min(spec.max_probe_rounds, nb)
+    mismatch = bad = 0
+    resid = torch.zeros((), dtype=torch.float32, device=dev)
+    ids = []
+    for b0 in range(0, nb, chunk_buckets):
+        b1 = min(nb, b0 + chunk_buckets)
+        kh, kl = shard.key_hi[b0:b1], shard.key_lo[b0:b1]
+        lm = hashing.is_valid(kh, kl)
+        mismatch += (lm.sum(dim=1, dtype=torch.int32) - shard.cnt[b0:b1]).abs().sum()
+        here = torch.arange(b0, b1, dtype=torch.int32, device=dev)[:, None]
+        bad += (lm & ((hashing.bucket_of(kh, kl, nb) ^ here) >= rounds)).sum()
+        rows = shard.values[b0 * LANES:b1 * LANES].float().abs()
+        resid += rows.masked_fill_(lm.view(-1, 1), 0.0).sum()
+        ids.append(((kh.long() << 32) | (kl.long() & hashing.M32))[lm])
+    s = torch.sort(torch.cat(ids)).values
+    return {
+        "cnt_mismatch": int(mismatch),
+        "bad_placement": int(bad),
+        "dup_keys": int((s[1:] == s[:-1]).sum()),
+        "free_values_resid": int(bool(resid > 0)),
+        "load_overflow": int((shard.cnt > LANES).sum()),
+    }
 
 
 def insert_rows(

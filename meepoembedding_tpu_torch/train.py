@@ -10,7 +10,10 @@ delta in one unique-row K1 launch, the rowwise accumulator one K3 launch)
 -> dense grad clip, LR schedule and the
 reference's Adam. The table is updated in place. The step syncs with the
 host once per insert-planning round (`table_ops.plan_insert` stops when no
-key is pending) and once more to read the loss.
+key is pending) and once more to read the loss. Between steps,
+`maintenance()` evicts (spilling to a `KVBackend`) and `save_checkpoint`
+writes the reference's format, synchronously or from a host snapshot on a
+background thread.
 
 One path serves every dim: the values plane is row-major, so the
 reference's 128-lane window rows (dim <= 128) and its `find_or_insert` path
@@ -41,11 +44,8 @@ from meepoembedding_tpu_torch.table.layout import (
     alloc_shard,
     resolve_device,
 )
-from meepoembedding_tpu_torch.weights import from_jax_params
+from meepoembedding_tpu_torch.weights import from_jax_params, to_jax_adam_state, to_jax_params
 
-_LIFECYCLE = "not ported yet: eviction (ROADMAP.md, queue 1, 'Lifecycle')"
-_CKPT_WRITER = ("not ported yet: the checkpoint writer (ROADMAP.md, queue 1, "
-                "'Checkpoint writer')")
 COUNTER_NAMES = ("hits", "misses", "inserts", "drops", "evictions", "spills",
                  "promotes", "denied")
 
@@ -61,11 +61,12 @@ class Trainer:
     `generator` (default: a CPU generator seeded with `run_cfg.seed`; the
     same seed gives the same tower on every device), dense Adam from zero.
     `shard` starts the trainer on an existing table shard of the same
-    geometry, which it then updates in place."""
+    geometry, which it then updates in place. `spill` is an optional
+    `KVBackend` that `maintenance()` spills evicted rows to."""
 
     def __init__(self, run_cfg: RunConfig, table_cfg: TableConfig, model_cfg: ModelConfig,
                  device="cuda", generator: Optional[torch.Generator] = None,
-                 shard: Optional[TableShard] = None):
+                 shard: Optional[TableShard] = None, spill=None):
         if model_cfg.embedding_dim != table_cfg.dim:
             raise ValueError(f"model embedding_dim {model_cfg.embedding_dim} != "
                              f"table dim {table_cfg.dim}")
@@ -83,6 +84,10 @@ class Trainer:
         self.params = list(self.model.parameters())
         self.opt_state = optim.dense_adam_init(self.params)
         self.step = 0
+        self.spill = spill
+        self.spilled_rows = 0
+        self._evict_cursor = 0
+        self._async_ckpt = None
         self.auc = StreamingAUC()
         self.last_logits: Optional[torch.Tensor] = None
 
@@ -139,11 +144,41 @@ class Trainer:
 
     def counters(self) -> dict:
         c = self.shard.counters.cpu().numpy()
-        return {n: int(c[i]) for i, n in enumerate(COUNTER_NAMES)}
+        out = {n: int(c[i]) for i, n in enumerate(COUNTER_NAMES)}
+        # spilling runs on the host, so the device counter never sees it
+        out["spills"] = max(out["spills"], self.spilled_rows)
+        return out
 
     # --- checkpoints ----------------------------------------------------------
-    def save_checkpoint(self, path: str) -> dict:
-        raise NotImplementedError(f"save_checkpoint is {_CKPT_WRITER}")
+    def _dense(self) -> dict:
+        """The tower and its Adam state as the reference's pytree leaves
+        (host copies)."""
+        return {"params": to_jax_params(self.model),
+                "opt_state": to_jax_adam_state(self.opt_state)}
+
+    def save_checkpoint(self, path: str, extras: Optional[dict] = None,
+                        async_: bool = False) -> dict:
+        """Save the table, the tower and its Adam state in the reference's
+        format. `async_=True` takes the snapshot on the host here and
+        returns, while a background thread writes the files
+        (`checkpoint.AsyncCheckpointer`); a save in flight is always joined
+        first, so async and sync saves to one directory serialize."""
+        from meepoembedding_tpu_torch import checkpoint
+
+        if async_:
+            if self._async_ckpt is None:
+                self._async_ckpt = checkpoint.AsyncCheckpointer()
+            self._async_ckpt.save(path, self.spec, [self.shard], self.step,
+                                  extras=extras, dense=self._dense())
+            return {"async": True, "step": self.step}
+        self.finish_saves()
+        return checkpoint.save(path, self.spec, [self.shard], self.step, extras=extras,
+                               dense=self._dense())
+
+    def finish_saves(self) -> None:
+        """Join the async save in flight, if any; re-raises its failure."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()
 
     def load_checkpoint(self, path: str) -> dict:
         """Restore the table, the tower and (when saved) its Adam state from
@@ -180,21 +215,35 @@ class Trainer:
         return moments(leaves[:k]), moments(leaves[k:2 * k]), int(leaves[2 * k])
 
     def maintenance(self) -> dict:
-        """The eviction tick: nothing to do under evict_policy="none"."""
+        """The eviction tick, off the step's path: one `evict_pass` over the
+        next window of buckets, the evicted rows (value, freq and optimizer
+        state) spilled to `spill` when there is one."""
         if self.spec.policy.evict_policy == "none":
             return {"evicted": 0}
-        raise NotImplementedError(f"maintenance with evict_policy="
-                                  f"{self.spec.policy.evict_policy!r} is {_LIFECYCLE}")
+        off = self._evict_cursor
+        self._evict_cursor = table_ops.next_evict_cursor(self.spec, off)
+        export = table_ops.evict_pass(self.spec, self.shard, self.step, off)
+        n = export.count
+        if n and self.spill is not None:
+            from meepoembedding_tpu_torch.tiering import SpillCodec, spill_export
+
+            spill_export(SpillCodec(self.spec), self.spill, export)
+            self.spilled_rows += n
+        return {"evicted": n}
 
 
 def train(run_cfg: RunConfig, table_cfg: TableConfig, model_cfg: ModelConfig, stream,
           logger: Optional[JsonlLogger] = None, maintenance_every: int = 50,
-          eval_stream=None, device="cuda") -> Trainer:
-    """Run `run_cfg.steps` training steps from a batch iterator. With
-    run_cfg.eval_every > 0 and an `eval_stream`, a held-out batch is scored
-    (probe-only) every eval_every steps and logged as eval_loss/eval_auc."""
+          spill=None, eval_stream=None, ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
+          device="cuda") -> Trainer:
+    """Run `run_cfg.steps` training steps from a batch iterator, with an
+    eviction tick every `maintenance_every` steps (spilling to `spill`) and
+    an async checkpoint to `ckpt_dir` every `ckpt_every` steps; the last
+    save is joined before returning. With run_cfg.eval_every > 0 and an
+    `eval_stream`, a held-out batch is scored (probe-only) every eval_every
+    steps and logged as eval_loss/eval_auc."""
     logger = logger or JsonlLogger(echo=True)
-    tr = Trainer(run_cfg, table_cfg, model_cfg, device=device)
+    tr = Trainer(run_cfg, table_cfg, model_cfg, device=device, spill=spill)
     loss_m = Meter()
     t0 = time.perf_counter()
     examples = 0
@@ -208,6 +257,9 @@ def train(run_cfg: RunConfig, table_cfg: TableConfig, model_cfg: ModelConfig, st
         examples += len(batch["label"])
         if maintenance_every and (i + 1) % maintenance_every == 0:
             tr.maintenance()
+        if ckpt_dir and ckpt_every and (i + 1) % ckpt_every == 0:
+            # the step loop pays only the snapshot
+            tr.save_checkpoint(ckpt_dir, async_=True)
         if eval_iter is not None and (i + 1) % run_cfg.eval_every == 0:
             eb = next(eval_iter, None)
             if eb is None:
@@ -222,4 +274,5 @@ def train(run_cfg: RunConfig, table_cfg: TableConfig, model_cfg: ModelConfig, st
             logger.log(step=tr.step, loss=loss_m.mean, auc=tr.auc.compute(),
                        examples_per_sec=examples / dt,
                        **{f"ctr_{k}": v for k, v in tr.counters().items()})
+    tr.finish_saves()
     return tr

@@ -1,11 +1,15 @@
-"""Load the reference's dense parameters into the port's modules.
+"""The reference's dense parameters and Adam state, to and from the port's
+modules.
 
 The JAX package keeps DLRM params as a pytree {"bottom": [(W, b), ...],
 "top": [(W, b), ...]} with W stored [in, out]; its checkpoints store the
 tree's leaves in `jax.tree_util` flatten order (dict keys sorted, so bottom
 w0, b0, w1, b1, ..., then top). `from_jax_params` takes either form as
 numpy arrays and copies them into the module, transposing W into
-`nn.Linear`'s [out, in].
+`nn.Linear`'s [out, in]; `to_jax_params` is its inverse. Its dense Adam
+state is the pytree (m, v, t): the moments shaped like the params, in f32,
+and the step as an int32 scalar; `to_jax_adam_state` gives its leaves from
+the port's (m, v, t).
 """
 
 from __future__ import annotations
@@ -57,3 +61,26 @@ def from_jax_params(model: nn.Module, params: Union[dict, Sequence[np.ndarray]])
             lin.weight.copy_(torch.from_numpy(np.array(w.T)).to(lin.weight.dtype))
             lin.bias.copy_(torch.from_numpy(np.array(b)).to(lin.bias.dtype))
     return model
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of a tensor, with a 2-D weight back in [in, out]."""
+    a = t.detach().cpu().numpy()
+    return (a.T if a.ndim == 2 else a).copy()  # a copy even where a.T is contiguous
+
+
+def to_jax_params(model: nn.Module) -> list:
+    """The model's tower as the reference's pytree leaves, in flatten order
+    (bottom w0, b0, ..., then top), weights in [in, out]: host copies, which
+    later in-place updates of the model do not reach."""
+    return [_host(p) for tower in _towers(model) for lin in tower.layers
+            for p in (lin.weight, lin.bias)]
+
+
+def to_jax_adam_state(state) -> list:
+    """The port's dense Adam state (m, v, t), moments listed in parameter
+    order, as the reference's (m, v, t) leaves: the f32 moments of m, then
+    of v, weights' moments in [in, out], then t as an int32 scalar. Host
+    copies."""
+    m, v, t = state
+    return [_host(x) for x in (*m, *v)] + [np.asarray(t, np.int32)]

@@ -1,6 +1,8 @@
-"""Shared by `test_torch_train.py` and `test_torch_train_bags.py`: one
-training case run through the port's Trainer and the JAX package's from one
-state, with everything compared after every step and at the end.
+"""Shared by the port's Trainer and lifecycle tests: one training case run
+through the port's Trainer and the JAX package's from one state, with
+everything compared after every step and at the end; and the converters
+that carry a table shard between the two packages bit for bit
+(`numpy_planes`, `to_torch_shard`, `to_jax_shard`).
 
 Exact: key, freq, last, cnt and ovf planes and the counters (so every slot,
 insert and drop). Within rtol 1e-5 / atol 1e-6: loss, logits, values,
@@ -11,7 +13,9 @@ over dim lanes."""
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
+import torch
 
 from meepoembedding_tpu.config import ModelConfig as JModelConfig
 from meepoembedding_tpu.config import OptimizerConfig as JOptimizerConfig
@@ -23,12 +27,76 @@ from meepoembedding_tpu.table import hashing as jh
 from meepoembedding_tpu.table import xla_ops as jx
 from meepoembedding_tpu.train import Trainer as JTrainer
 from meepoembedding_tpu_torch.config import ModelConfig, OptimizerConfig, RunConfig, TableConfig
+from meepoembedding_tpu.table import layout as jl
 from meepoembedding_tpu_torch.data import SyntheticConfig, SyntheticStream
+from meepoembedding_tpu_torch.table import layout as tl
 from meepoembedding_tpu_torch.train import Trainer
 from meepoembedding_tpu_torch.weights import from_jax_params
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 INT_PLANES = ("key_hi", "key_lo", "freq", "last", "cnt", "ovf", "counters")
+
+
+PLANES = ("key_hi", "key_lo", "cnt", "ovf", "freq", "last", "values", "counters", "cms")
+
+
+def numpy_planes(shard) -> dict:
+    """Host copies of a shard's planes, of either package, by name; values
+    and full-dim planes as [capacity, dim] rows (the JAX package packs them
+    128 // dim to a 128-lane row, which is the same bytes row-major), bf16
+    as its uint16 bits."""
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return (x.view(torch.int16).numpy().view(np.uint16) if x.dtype == torch.bfloat16
+                    else x.numpy()).copy()
+        a = np.array(x)
+        return a.view(np.uint16) if a.dtype == ml_dtypes.bfloat16 else a
+
+    out = {name: host(getattr(shard, name)) for name in PLANES}
+    out["opt_rowwise"] = [host(p) for p in shard.opt_rowwise]
+    out["opt_fulldim"] = [host(p) for p in shard.opt_fulldim]
+    return out
+
+
+def _rows(a, dim, bf16, to_jax):
+    a = a.reshape(-1, 128) if to_jax else a.reshape(-1, dim)
+    if bf16:
+        return a.view(ml_dtypes.bfloat16) if to_jax else torch.from_numpy(
+            a.view(np.int16).copy()).view(torch.bfloat16)
+    return a.copy() if to_jax else torch.from_numpy(a.copy())
+
+
+def to_torch_shard(planes: dict, spec) -> "tl.TableShard":
+    """The port's shard holding `planes` (from `numpy_planes`), on the CPU."""
+    bf16 = spec.value_dtype == "bfloat16"
+    t = {n: torch.from_numpy(planes[n].copy()) for n in PLANES if n != "values"}
+    return tl.TableShard(
+        values=_rows(planes["values"], spec.dim, bf16, False),
+        opt_rowwise=tuple(torch.from_numpy(p.copy()) for p in planes["opt_rowwise"]),
+        opt_fulldim=tuple(_rows(p, spec.dim, bf16, False) for p in planes["opt_fulldim"]),
+        **t)
+
+
+def to_jax_shard(planes: dict, spec) -> "jl.TableShard":
+    """The JAX package's shard holding `planes` (from `numpy_planes`)."""
+    bf16 = spec.value_dtype == "bfloat16"
+    return jl.TableShard(
+        values=jnp.asarray(_rows(planes["values"], spec.dim, bf16, True)),
+        opt_rowwise=tuple(jnp.asarray(p) for p in planes["opt_rowwise"]),
+        opt_fulldim=tuple(jnp.asarray(_rows(p, spec.dim, bf16, True))
+                          for p in planes["opt_fulldim"]),
+        **{n: jnp.asarray(planes[n]) for n in PLANES if n != "values"})
+
+
+def assert_planes_equal(jshard, tshard, what=""):
+    """Every plane of the two shards bit for bit."""
+    a, b = numpy_planes(jshard), numpy_planes(tshard)
+    for n in PLANES:
+        np.testing.assert_array_equal(b[n].reshape(a[n].shape), a[n], err_msg=f"{what} {n}")
+    for kind in ("opt_rowwise", "opt_fulldim"):
+        assert len(a[kind]) == len(b[kind])
+        for x, y in zip(a[kind], b[kind]):
+            np.testing.assert_array_equal(y.reshape(x.shape), x, err_msg=f"{what} {kind}")
 
 
 def configs(dim, bag, kind, run_opts, steps=3):

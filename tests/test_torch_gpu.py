@@ -375,3 +375,127 @@ def test_gather_and_fetch_add_refuse_mixed_devices_and_rows():
         row_gather_multi([plane, torch.zeros((8, 8), device=dev)], idx)
     with pytest.raises(ValueError):  # old on the CPU
         row_scatter_add(plane, idx, torch.zeros((2, 4), device=dev), torch.zeros((2, 4)))
+
+
+# --- the lifecycle's calls on the card against the same calls on CPU copies ---
+
+def _lifecycle_pair(kind="rowwise_adagrad", value_dtype="float32", **policy):
+    """A CPU table of 2^16 slots holding 40,000 rows with random freq, last
+    and optimizer state, and its copy on the card."""
+    import dataclasses
+
+    from meepoembedding_tpu_torch.config import OptimizerConfig, PolicyConfig, TableConfig
+    from meepoembedding_tpu_torch.table import hashing, table_ops
+    from meepoembedding_tpu_torch.table.layout import TableSpec, alloc_shard
+
+    dev = _cuda()
+    cfg = TableConfig(dim=32, capacity=1 << 16, value_dtype=value_dtype,
+                      optimizer=OptimizerConfig(kind=kind), policy=PolicyConfig(**policy))
+    spec = TableSpec.from_config(cfg)
+    cpu = alloc_shard(spec, "cpu")
+    g = torch.Generator().manual_seed(7)
+    n = 40_000
+    ids = torch.randint(-(2**62), 2**62, (n,), generator=g)
+    hi, lo = hashing.split_ids_t(ids)
+    table_ops.insert_rows(
+        spec, cpu, hi, lo, torch.randn((n, 32), generator=g), torch.ones(n, dtype=torch.bool),
+        40, freq=torch.randint(1, 6, (n,), generator=g, dtype=torch.int32),
+        last=torch.randint(0, 40, (n,), generator=g, dtype=torch.int32),
+        accum=torch.rand((n,), generator=g),
+        fulldim=[torch.randn((n, 32), generator=g) for _ in cpu.opt_fulldim] or None)
+
+    def to(shard, d):
+        return type(shard)(**{f.name: (tuple(t.to(d, copy=True) for t in v)
+                                       if isinstance(v, tuple) else v.to(d, copy=True))
+                              for f in dataclasses.fields(shard) for v in [getattr(shard, f.name)]})
+
+    return spec, cpu, to(cpu, dev), ids, to
+
+
+def _assert_shards_equal(a, b):
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        for p, q in zip(x if isinstance(x, tuple) else (x,), y if isinstance(y, tuple) else (y,)):
+            assert torch.equal(_bits(p.cpu()), _bits(q.cpu())), f.name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("kind,dtype", [("rowwise_adagrad", "float32"), ("adam", "bfloat16")])
+def test_evict_pass_on_card_matches_cpu(window, kind, dtype):
+    """LFU/TTL eviction, a full scan and a window of 100 of 512 buckets
+    from bucket 450 (it wraps): the exports and every plane equal."""
+    from meepoembedding_tpu_torch.kernels import row_gather, row_scatter_set
+    from meepoembedding_tpu_torch.table import table_ops
+
+    spec, cpu, gpu, _, _ = _lifecycle_pair(kind, dtype, evict_policy="lfu_ttl", lfu_min_freq=3,
+                                           ttl_steps=25, max_evict_per_pass=4096,
+                                           evict_scan_buckets=window)
+    off = None if window is None else 450
+    g0, s0 = row_gather.launches, row_scatter_set.launches
+    got = table_ops.evict_pass(spec, gpu, 40, off)
+    torch.cuda.synchronize()
+    assert row_gather.launches - g0 == (2 if window is None else 3)
+    assert row_scatter_set.launches - s0 == 2
+    want = table_ops.evict_pass(spec, cpu, 40, off)
+    assert got.count == want.count > 0
+    for name in ("hi", "lo", "rows", "freq", "accum"):
+        assert torch.equal(_bits(getattr(got, name).cpu()), _bits(getattr(want, name))), name
+    for x, y in zip(got.fulldim, want.fulldim, strict=True):
+        assert torch.equal(_bits(x.cpu()), _bits(y))
+    _assert_shards_equal(gpu, cpu)
+
+
+@pytest.mark.gpu
+def test_erase_keys_and_invariants_on_card_match_cpu():
+    from meepoembedding_tpu_torch.table import hashing, table_ops
+
+    spec, cpu, gpu, ids, _ = _lifecycle_pair()
+    q = torch.unique(torch.cat([ids[:5000], torch.arange(1, 3000)]))
+    for shard in (gpu, cpu):
+        hi, lo = hashing.split_ids_t(q.to(shard.key_hi.device))
+        found = table_ops.erase_keys(spec, shard, hi, lo, hashing.is_valid(hi, lo))
+        assert int(found.sum()) == 5000
+    _assert_shards_equal(gpu, cpu)
+    assert table_ops.check_invariants(spec, gpu, chunk_buckets=100) == \
+        table_ops.check_invariants(spec, cpu) == dict.fromkeys(
+            ("cnt_mismatch", "bad_placement", "dup_keys", "free_values_resid", "load_overflow"), 0)
+    free = int((~hashing.is_valid(cpu.key_hi, cpu.key_lo)).view(-1).nonzero()[0, 0])
+    for shard in (gpu, cpu):
+        shard.values[free] = 2.0  # a free slot's values
+        shard.cnt[3] += 1
+    bad = table_ops.check_invariants(spec, gpu, chunk_buckets=100)
+    assert bad == table_ops.check_invariants(spec, cpu)
+    assert bad["cnt_mismatch"] == 1 and bad["free_values_resid"] == 1
+
+
+@pytest.mark.gpu
+def test_streamed_save_and_restore_on_card_match_cpu(tmp_path, monkeypatch):
+    """A streamed save from the card writes the same part files as one from
+    the CPU copy, and restoring them on the card gives the planes the CPU
+    restore gives."""
+    import os
+
+    import numpy as np
+
+    from meepoembedding_tpu_torch import checkpoint
+
+    monkeypatch.setenv("MEEPO_CKPT_CHUNK_ROWS", "16384")
+    spec, cpu, gpu, _, to = _lifecycle_pair("adam", "bfloat16")
+    checkpoint.save(str(tmp_path / "g"), spec, [gpu], 40)
+    checkpoint.save(str(tmp_path / "c"), spec, [cpu], 40)
+    gdir = tmp_path / "g" / "step-40"
+    names = sorted(os.listdir(gdir))
+    assert names == sorted(os.listdir(tmp_path / "c" / "step-40"))
+    assert sum(".part" in x for x in names) == 3
+    for name in names:
+        if name.endswith(".npz"):
+            with np.load(gdir / name) as a, np.load(tmp_path / "c" / "step-40" / name) as b:
+                assert a.files == b.files
+                for k in a.files:
+                    assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+    (on_card,), _ = checkpoint.restore_shards(spec, str(tmp_path / "g"), 1, device="cuda")
+    (on_cpu,), _ = checkpoint.restore_shards(spec, str(tmp_path / "c"), 1, device="cpu")
+    _assert_shards_equal(on_card, on_cpu)

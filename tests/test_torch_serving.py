@@ -143,9 +143,10 @@ def test_unported_paths_raise(ckpt):
 
 def test_chip_smoke_rehearses_on_cpu():
     """The card script's serve phase (checkpoint, restore, fill, requests,
-    row and score checks, HTTP) and train phase at a tiny size with the
-    plain versions. It must exit non-zero and print no result line: a CPU
-    run is no chip run."""
+    row and score checks, HTTP), train phase and lifecycle phase (eviction
+    into a spill tier, remove, promotion, checkpoints, growth) at a tiny
+    size with the plain versions. It must exit non-zero and print no result
+    line: a CPU run is no chip run."""
     out = subprocess.run(
         [sys.executable, "chip_smoke.py", "--rehearse-on-cpu", "--capacity", str(1 << 14),
          "--fill-rows", "9000", "--ckpt-rows", "2000", "--part-rows", "800",
@@ -155,6 +156,9 @@ def test_chip_smoke_rehearses_on_cpu():
     assert out.returncode == 1, out.stderr
     assert "serve: POST /score matches the direct score" in out.stdout
     assert "train: step p50" in out.stdout and "drops 0" in out.stdout
+    assert "each pass's spilled rows equal the window's planes" in out.stdout
+    assert "rows equal their spilled payload bit for bit" in out.stdout
+    assert "every earlier row's planes kept bit for bit" in out.stdout
     assert "rehearsal finished" in out.stdout
     assert '"ok": true' not in out.stdout
     assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke"))
