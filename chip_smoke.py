@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch + CUDA port's serving, training and table-lifecycle
-paths on one card and check them.
+"""Run the PyTorch + CUDA port's serving, training, table-lifecycle and
+model-zoo paths on one card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -95,11 +95,33 @@ Phases (any failure exits non-zero and prints no result line):
            same rows grows to 2^24 slots through a train lookup of 2^19 new
            ids, every earlier row kept. Then the lifecycle's new call
            shapes are timed as the timing phase times the others.
+  zoo      with the counters set to 0 just before it. (a) 3 Trainer steps of
+           ctr_mlp, dcn, deepfm, din, bst (bags of 5) and two_tower (logQ
+           on) at the default ModelConfig widths on a 2^16-slot table, on
+           the card and on the CPU from one state: planes and counters
+           equal, values, accumulators, loss and logits within rtol 1e-5 /
+           atol 1e-6 (two-tower margins: atol 1e-5 * tau), params within
+           atol 1e-4. (b) 4096 x 35 Criteo-format lines with a planted
+           signal (write_synthetic_criteo_signal: Zipf s = 1.05, 20,000
+           values a feature) read by CriteoStream through PrefetchStream
+           (depth 2), failing unless the native parser runs; ctr_mlp, dcn
+           and deepfm each take 5 warm-up and 30 timed steps of 4096
+           examples on the live table (config 2's width). (c) din and bst on
+           SyntheticStream bags of 20 ids (4096 x 26 x 20 a step; the BST
+           paper's sequence length) and two_tower with logQ on 4096 x 26
+           one-hot ids, same table and step counts. Each kind: step p50 /
+           p99, examples/s, ids/s, drops, first and last loss; fails on a
+           non-finite loss, drops above 1% of inserts, or other launches a
+           step than the train phase's. (d) the dcn and din trainers of (a)
+           save a checkpoint that a ScoringService restores; one request's
+           scores equal the trainer's eval_step logits through a sigmoid
+           (rtol 1e-5).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. `--rehearse-on-cpu` runs the
-serve, train and lifecycle phases on the CPU at the sizes given (the
-lifecycle's reduced-depth table at 2^14 slots) with the plain versions and
+serve, train, lifecycle and zoo phases on the CPU at the sizes given (the
+lifecycle's reduced-depth table at 2^14 slots; the zoo on a fresh table of
+--capacity slots, bags of 4, 1 + 2 steps) with the plain versions and
 exits 1 without a result: a dry run of the control flow on machines without
 a card.
 """
@@ -127,7 +149,13 @@ from meepoembedding_tpu_torch import ModelConfig, ScoringService, TableConfig, m
 from meepoembedding_tpu_torch.backends import HostKVStore
 from meepoembedding_tpu_torch.checkpoint import export_shard_arrays, load_dense
 from meepoembedding_tpu_torch.config import LANES, PolicyConfig, RunConfig
-from meepoembedding_tpu_torch.data import SyntheticConfig, SyntheticStream
+from meepoembedding_tpu_torch.data import (
+    CriteoStream,
+    PrefetchStream,
+    SyntheticConfig,
+    SyntheticStream,
+)
+from meepoembedding_tpu_torch.data.criteo import write_synthetic_criteo_signal
 from meepoembedding_tpu_torch.kernels import (
     _build,
     row_gather,
@@ -1783,6 +1811,214 @@ def time_lifecycle_kernels(tr, policy, seed: int) -> list:
 
 # --- main ----------------------------------------------------------------------
 
+# --- the model zoo ---------------------------------------------------------------
+
+ZOO_KINDS = ("ctr_mlp", "dcn", "deepfm", "din", "bst", "two_tower")
+ZOO_BAG_LEN = 20  # behaviour-sequence length of the BST paper (Chen et al. 2019)
+
+
+def zoo_model_cfg(kind: str) -> ModelConfig:
+    """The default ModelConfig widths (13 dense, 26 sparse, dim 32, bottom
+    128-64-32, top 256-128-1, 3 cross layers); two-tower with logQ."""
+    return ModelConfig(kind=kind, logq_correction=kind == "two_tower")
+
+
+def margin_atol(tr) -> float:
+    """The two-tower's logits are margins, differences of two scores of
+    magnitude up to tau = exp(log_tau): their rounding scales with tau, so
+    their atol is 1e-5 * tau (rtol 1e-5 on the scores). 1e-6 otherwise."""
+    if tr.model_cfg.kind != "two_tower":
+        return 1e-6
+    return 1e-5 * float(torch.exp(tr.model.log_tau.detach().cpu()))
+
+
+def zero_grad_leaves(mc) -> set:
+    """Tower leaves whose gradient is 0 in exact arithmetic: DIN's last
+    attention bias shifts every logit of a softmax alike. Both devices move
+    it by rounding noise scaled up by Adam; it reaches no output."""
+    return {2 * len(mc.attention_mlp) + 1} if mc.kind == "din" else set()
+
+
+def check_zoo_parity(seed: int, dev, bsz: int) -> dict:
+    """3 Trainer steps of each new kind on `dev` and on the CPU from one
+    state (tower from one CPU generator, empty 2^16-slot table, the same
+    batches of `bsz` examples; DIN and BST on bags of 5, two-tower with
+    logQ): key, freq, last, cnt, ovf and counters equal; values,
+    accumulators, loss and logits within rtol 1e-5 / atol 1e-6 (margins:
+    `margin_atol`); dense params within atol 1e-4, as `check_train_parity`
+    holds them. Returns the `dev` trainers and their last batches."""
+    out = {}
+    for kind in ZOO_KINDS:
+        mc = zoo_model_cfg(kind)
+        # the two-tower's tower is held still (dense lr 0): Adam turns its
+        # near-zero item-tower gradients (in-batch softmax rows sum to zero)
+        # into steps of ~lr whose sign is rounding, which then move every
+        # embedding gradient (PERF.md, "Findings")
+        lr = 0.0 if kind == "two_tower" else RunConfig.dense_learning_rate
+        run_cfg = RunConfig(batch_size=bsz, steps=3, seed=seed, dense_learning_rate=lr)
+        bag = 5 if kind in ("din", "bst") else 1
+        stream = SyntheticStream(SyntheticConfig(batch_size=bsz, seed=seed + 5, bag_len=bag))
+        batches = list(stream.batches(3))
+        cpu, card = (Trainer(run_cfg, TableConfig(dim=32, capacity=1 << 16), mc, device=d)
+                     for d in (torch.device("cpu"), dev))
+        res = {d: [(tr.train_step(b)["loss"], tr.last_logits.cpu()) for b in batches]
+               for d, tr in (("cpu", cpu), (dev, card))}
+        for name in ("key_hi", "key_lo", "freq", "last", "cnt", "ovf", "counters"):
+            if not torch.equal(getattr(card.shard, name).cpu(), getattr(cpu.shard, name)):
+                raise AssertionError(f"zoo parity {kind}: {name} differs between {dev} and CPU")
+        skip = zero_grad_leaves(mc)
+        params = [(j, p) for j, p in enumerate(card.params) if j not in skip]
+        errs = {}
+        for name, got, want, tol in (
+            ("values", card.shard.values, cpu.shard.values, dict(rtol=1e-5, atol=1e-6)),
+            ("accum", card.shard.opt_rowwise[0], cpu.shard.opt_rowwise[0],
+             dict(rtol=1e-5, atol=1e-6)),
+            ("loss", torch.tensor([r[0] for r in res[dev]]),
+             torch.tensor([r[0] for r in res["cpu"]]), dict(rtol=1e-5, atol=1e-6)),
+            ("logits", torch.stack([r[1] for r in res[dev]]),
+             torch.stack([r[1] for r in res["cpu"]]), dict(rtol=1e-5, atol=margin_atol(cpu))),
+            ("params", torch.cat([p.detach().reshape(-1) for _, p in params]),
+             torch.cat([cpu.params[j].detach().reshape(-1) for j, _ in params]),
+             dict(rtol=0.0, atol=1e-4)),
+        ):
+            got = got.cpu()
+            errs[name] = float((got - want).abs().max())
+            torch.testing.assert_close(got, want, **tol,
+                                       msg=lambda m, n=name: f"zoo parity {kind} {n}: {m}")
+        log(f"check zoo parity {kind}: 3 steps of {bsz} x 26{' x 5' if bag > 1 else ''} ids, "
+            f"{dev} vs CPU: planes and counters equal ({card.counters()}); max |{dev} - CPU| "
+            f"{errs}")
+        out[kind] = (card, batches[-1])
+    return out
+
+
+def zoo_train(kind: str, table, batches, dev, card: str, seed: int) -> dict:
+    """Warm-up steps, then timed ones, of a `kind` Trainer on the live table
+    (in place), from `batches` (an iterator). Fails on a non-finite loss,
+    drops above 1% of inserts, or (on the card) other per-step launches than
+    the train phase's. On the card it then steps again on the last 5
+    batches, held in memory (timed: no input thread beside the steps), and
+    profiles 2 more."""
+    mc = zoo_model_cfg(kind)
+    warm, nsteps = (1, 2) if dev.type == "cpu" else (5, TRAIN_STEPS)
+    tr = Trainer(RunConfig(steps=warm + nsteps, seed=seed), table.cfg, mc, device=dev,
+                 generator=torch.Generator().manual_seed(seed), shard=table.shard)
+    before, at, rounds0 = tr.counters(), launches(), table_ops.plan_insert.rounds
+    losses, lat, shape, held = [], [], None, []
+    for i in range(warm + nsteps):
+        b = next(batches)
+        held = (held + [b])[-5:]
+        shape = b["ids"].shape
+        t0 = time.perf_counter()
+        loss = tr.train_step(b)["loss"]  # reading the loss syncs
+        lat.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if not np.isfinite(loss):
+            raise AssertionError(f"zoo {kind} step {i}: loss {loss}")
+    sync(dev)
+    steps = warm + nsteps
+    after = tr.counters()
+    diff = {k: after[k] - before[k] for k in ("hits", "inserts", "drops")}
+    now = launches()
+    per = {k: (now[k] - at[k]) / steps for k in now}
+    rounds = table_ops.plan_insert.rounds - rounds0
+    lat = np.asarray(lat[warm:])
+    bsz, ids_per_step = shape[0], int(np.prod(shape))
+    log(f"zoo {kind}: {warm} warm-up + {nsteps} timed steps of {' x '.join(map(str, shape))} "
+        f"ids: step p50 {np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms; "
+        f"{bsz * nsteps / (lat.sum() / 1e3):.0f} examples/s, "
+        f"{ids_per_step * nsteps / (lat.sum() / 1e3):.0f} ids/s on {card}; hits "
+        f"{diff['hits']}, inserts {diff['inserts']}, drops {diff['drops']}; loss first "
+        f"{losses[0]:.6f}, last {losses[-1]:.6f}; launches per step: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+        + f", planning rounds {rounds / steps:.2f}")
+    if diff["drops"] > 0.01 * max(1, diff["inserts"]):
+        raise AssertionError(f"zoo {kind}: {diff['drops']} drops > 1% of {diff['inserts']} "
+                             "inserts")
+    out = {"kind": kind, "shape": list(shape), "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "examples_per_s": bsz * nsteps / (lat.sum() / 1e3),
+           "ids_per_s": ids_per_step * nsteps / (lat.sum() / 1e3), "drops": diff["drops"],
+           "inserts": diff["inserts"], "loss_first": losses[0], "loss_last": losses[-1]}
+    if dev.type == "cuda":
+        want = {"row_scatter_set": 1, "row_scatter_add": 1, "row_merge_add": 3,
+                "row_gather": 4 + rounds / steps}
+        for name, w in want.items():
+            if abs(per[name] - w) > 1e-9:
+                raise AssertionError(f"zoo {kind}: {name} launched {per[name]:.2f} times a "
+                                     f"step, not {w:.2f}")
+        again = []
+        for b in held:
+            t0 = time.perf_counter()
+            tr.train_step(b)
+            again.append((time.perf_counter() - t0) * 1e3)
+        out["held_p50_ms"] = float(np.median(again))
+        log(f"zoo {kind}: {len(held)} more steps on the last batches, held in memory: p50 "
+            f"{out['held_p50_ms']:.3f} ms")
+        run_profiled(f"zoo {kind}", lambda: [tr.train_step(b) for b in held[-2:]], 2, "step")
+    return out
+
+
+def zoo_score(kind: str, tr, batch, root: Path, dev) -> None:
+    """Save a trainer's checkpoint, restore it into a ScoringService and
+    score one request: the scores must equal its eval_step's logits
+    through a sigmoid (rtol 1e-5)."""
+    path = root / f"ckpt-{kind}"
+    tr.save_checkpoint(str(path))
+    svc = ScoringService(str(path), tr.table_cfg, tr.model_cfg, device=dev)
+    got = svc.score(batch["dense"], batch["ids"])
+    want = torch.sigmoid(tr.eval_step(batch)["logits"]).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    log(f"zoo {kind}: a checkpoint restored into a ScoringService scores "
+        f"{' x '.join(map(str, batch['ids'].shape))} ids as the trainer's eval_step "
+        f"(max |diff| {float(np.abs(got - want).max())})")
+    shutil.rmtree(path)
+
+
+def zoo(args, table, dev, card: str) -> list:
+    """The model-zoo phase (module docstring): (a) each new kind card vs
+    CPU, (b) the Criteo path for ctr_mlp, dcn and deepfm, (c) DIN and BST
+    on bags and the two-tower with logQ, all on the live table, (d) DCN and
+    DIN checkpoints scored through a ScoringService."""
+    root = ROOT / "build" / "chip_smoke" / "zoo"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rehearse = dev.type == "cpu"
+    bsz = args.batch if rehearse else TRAIN_BATCH
+    steps = 3 if rehearse else 5 + TRAIN_STEPS
+    bag_len = 4 if rehearse else ZOO_BAG_LEN  # a rehearsal's table is 2^14 slots
+    try:
+        parity = check_zoo_parity(args.seed, dev, args.batch if rehearse else 512)
+        tsv = root / "signal.tsv"
+        t0 = time.perf_counter()
+        write_synthetic_criteo_signal(str(tsv), bsz * steps, seed=args.seed)
+        log(f"zoo: wrote {bsz * steps} Criteo-format lines (planted signal, Zipf s = 1.05, "
+            f"20,000 values a feature) in {time.perf_counter() - t0:.1f} s")
+        results = []
+        for i, kind in enumerate(("ctr_mlp", "dcn", "deepfm")):
+            stream = PrefetchStream(CriteoStream(str(tsv), bsz), depth=2)
+            if stream.parser != "native":
+                raise AssertionError(f"CriteoStream parses with {stream.parser!r}, not native")
+            results.append(zoo_train(kind, table, iter(stream.batches(steps)), dev, card,
+                                     args.seed + 20 + i))
+        t0 = time.perf_counter()
+        bags = list(SyntheticStream(SyntheticConfig(batch_size=bsz, seed=args.seed + 31,
+                                                    bag_len=bag_len)).batches(steps))
+        onehot = list(SyntheticStream(SyntheticConfig(batch_size=bsz,
+                                                      seed=args.seed + 37)).batches(steps))
+        log(f"zoo: made {steps} batches of {bsz} x 26 x {bag_len} and of {bsz} x 26 ids "
+            f"in {time.perf_counter() - t0:.1f} s")
+        for i, (kind, batches) in enumerate((("din", bags), ("bst", bags),
+                                             ("two_tower", onehot))):
+            results.append(zoo_train(kind, table, iter(batches), dev, card,
+                                     args.seed + 23 + i))
+        for kind in ("dcn", "din"):
+            zoo_score(kind, *parity[kind], root, dev)
+    finally:
+        shutil.rmtree(root.parent, ignore_errors=True)
+    return results
+
+
 def main() -> int:
     args = parse_args()
 
@@ -1802,6 +2038,9 @@ def main() -> int:
         train(args, res["svc"].table, cpu, "the CPU (rehearsal)")
         lifecycle_live(args, res["svc"].table, res["assigned"], cpu, "the CPU (rehearsal)")
         lifecycle_depth(args, cpu, "the CPU (rehearsal)")
+        # a fresh table: the rehearsal's live one is full after the lifecycle
+        zoo(args, DynamicEmbeddingTable(TableConfig(dim=32, capacity=args.capacity), device=cpu),
+            cpu, "the CPU (rehearsal)")
         log(f"rehearsal finished in {time.perf_counter() - t_start:.1f} s")
         return 1
 
@@ -1882,6 +2121,20 @@ def main() -> int:
         if count <= 0:
             raise AssertionError(f"the lifecycle path never launched {name}")
     timings += time_lifecycle_kernels(life["trainer"], life["policy"], args.seed)
+
+    # the model zoo, with the counters set to 0 just before it
+    reset_launches()
+    t0 = time.perf_counter()
+    zoo_res = zoo(args, res["svc"].table, cuda, card)
+    zoo_counts = launches()
+    log(f"zoo: path finished in {time.perf_counter() - t0:.1f} s; launches {zoo_counts} "
+        f"on {card}")
+    for r in zoo_res:
+        log(f"zoo summary {r['kind']}: " + ", ".join(f"{k} {v}" for k, v in r.items()
+                                                      if k != "kind"))
+    for name, count in zoo_counts.items():
+        if count <= 0:
+            raise AssertionError(f"the zoo path never launched {name}")
     meta = {
         "row_gather": ("meepoembedding_tpu_torch/csrc/row_gather.cu",
                        "meepoembedding_tpu/table/pallas_ops.py:58"),
@@ -1902,7 +2155,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": train_counts[name], "launches_serve": serve_counts[name],
-            "launches_lifecycle": life_counts[name],
+            "launches_lifecycle": life_counts[name], "launches_zoo": zoo_counts[name],
             "max_abs_err": max(t["max_abs_err"] for t in mine), "ms": e["ms"],
             "device_ms": e["device_ms"], "kernel_ms": e["kernel_ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": "bytes",

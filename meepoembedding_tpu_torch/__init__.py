@@ -1,10 +1,11 @@
-"""PyTorch + CUDA port of the dynamic embedding engine (serving and
-training slices).
+"""PyTorch + CUDA port of the dynamic embedding engine (serving, training,
+the table lifecycle, the Criteo input path and the model zoo).
 
 `meepoembedding_tpu/` (JAX, TPU) is the reference; this package reproduces
 its serving path (checkpoint restore into a hash table, probe-only lookups,
-DLRM scoring) and its training path (insert-on-miss lookups, the sparse
-optimizers, DLRM training) for an NVIDIA H100. Plain tensor code is
+scoring), its training path (insert-on-miss lookups, the sparse
+optimizers, every model kind of its zoo), its table lifecycle and its
+Criteo input path for an NVIDIA H100. Plain tensor code is
 PyTorch; the four row kernels the paths run are hand-written CUDA
 (`csrc/`), built with `nvcc` at first use. CPU tensors take each kernel's
 plain PyTorch version, which is how the tests run on machines without a

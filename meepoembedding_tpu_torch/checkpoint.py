@@ -464,6 +464,18 @@ def load_dense(path: str, name: str) -> List[np.ndarray]:
         return [z[f"leaf{j}"] for j in range(len(z.files))]
 
 
+def check_manifest(spec: TableSpec, m: dict) -> None:
+    """Raise unless a checkpoint's manifest fits `spec` (dim and optimizer):
+    the check a restore makes before it allocates anything, which callers
+    that drop their old planes first make before they drop them."""
+    if m["dim"] != spec.dim:
+        raise ValueError(f"dim mismatch: ckpt {m['dim']} vs spec {spec.dim}")
+    if m["optimizer"]["kind"] != spec.optimizer.kind:
+        raise ValueError(
+            f"optimizer mismatch: ckpt {m['optimizer']['kind']} vs {spec.optimizer.kind}"
+        )
+
+
 def restore_shards(
     spec: TableSpec, path: str, num_shards: int = 1, batch: int = _RESTORE_BATCH,
     device="cuda",
@@ -474,12 +486,7 @@ def restore_shards(
     too small), never truncating silently. The saved lifetime counters land
     on shard 0; the restore's own inserts are not history."""
     m = read_manifest(path)
-    if m["dim"] != spec.dim:
-        raise ValueError(f"dim mismatch: ckpt {m['dim']} vs spec {spec.dim}")
-    if m["optimizer"]["kind"] != spec.optimizer.kind:
-        raise ValueError(
-            f"optimizer mismatch: ckpt {m['optimizer']['kind']} vs {spec.optimizer.kind}"
-        )
+    check_manifest(spec, m)
     if m.get("counts"):
         total = max(1, sum(m["counts"]))
         b = 1024

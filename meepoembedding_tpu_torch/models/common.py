@@ -1,4 +1,12 @@
-"""Shared model pieces (port of `meepoembedding_tpu/models/common.py:12-75`)."""
+"""Shared model pieces (port of `meepoembedding_tpu/models/common.py`).
+
+Every model of the port is an `nn.Module` whose `forward` is the
+reference's `apply`, and whose `jax_tree()` returns its parameters in the
+nesting of the reference's param pytree (dicts, lists, tuples), so that
+`weights.py` can map them to and from the reference's flat leaves. The
+reference stores an MLP weight [in, out]; the port keeps `nn.Linear`'s
+[out, in] and transposes there. Every other weight is kept in the
+reference's layout (`x @ w`)."""
 
 from __future__ import annotations
 
@@ -7,6 +15,26 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def normal_(shape, std: float, dtype, generator: torch.Generator) -> nn.Parameter:
+    """A parameter drawn from Normal(0, std) with `generator`, as the
+    reference's `jax.random.normal(key, shape, dtype) * std` (the same
+    distribution, not the same numbers)."""
+    return nn.Parameter((torch.randn(shape, generator=generator) * std).to(dtype))
+
+
+def check_widths(cfg, dense: torch.Tensor, emb: torch.Tensor) -> None:
+    """Raise unless the batch carries the configured feature counts: a
+    model fed other widths would score garbage."""
+    if emb.shape[1] != cfg.num_sparse_features:
+        raise ValueError(f"emb carries {emb.shape[1]} sparse features, model configured "
+                         f"for {cfg.num_sparse_features}")
+    if dense.shape[1] != cfg.num_dense_features:
+        raise ValueError(f"dense carries {dense.shape[1]} features, model configured "
+                         f"for {cfg.num_dense_features}")
 
 
 class MLP(nn.Module):
@@ -31,6 +59,9 @@ class MLP(nn.Module):
             layers.append(lin)
             d = h
         self.layers = nn.ModuleList(layers)
+
+    def jax_tree(self) -> list:
+        return [(lin.weight, lin.bias) for lin in self.layers]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self.layers)
@@ -67,9 +98,19 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-z.abs())))
 
 
-def model_loss(model, dense, emb, bag_valid, label):
-    """The trainer's objective for CTR rankers: pointwise BCE over the
-    model's logits. Returns (loss, logits). The reference's retrieval
-    models (in-batch softmax) wait for the model zoo's slice."""
+def model_loss(model, dense, emb, bag_valid, label, item_key=None, logq=None):
+    """The trainers' objective: a retrieval model's own `loss_and_logits`
+    (in-batch softmax, models/two_tower.py), else pointwise BCE over the
+    model's logits. Returns (loss, per-example metric logits)."""
+    fn = getattr(model, "loss_and_logits", None)
+    if fn is not None:
+        return fn(dense, emb, label, item_key, logq=logq)
     logits = model_apply(model, dense, emb, bag_valid)
     return bce_with_logits(logits, label), logits
+
+
+def batch_item_key(model, hi, lo):
+    """[B] item identity key for accidental-hit masking, or None for models
+    without one (a function of the id planes alone)."""
+    fn = getattr(model, "item_key", None)
+    return None if fn is None else fn(hi, lo)

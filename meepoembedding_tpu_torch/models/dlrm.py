@@ -14,9 +14,7 @@ import torch
 from torch import nn
 
 from meepoembedding_tpu_torch.config import ModelConfig
-from meepoembedding_tpu_torch.models.common import MLP
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from meepoembedding_tpu_torch.models.common import DTYPES, MLP, check_widths
 
 
 class DLRM(nn.Module):
@@ -29,24 +27,18 @@ class DLRM(nn.Module):
         iu, ju = np.triu_indices(f, k=1)
         self.register_buffer("_iu", torch.from_numpy(iu.astype(np.int64)), persistent=False)
         self.register_buffer("_ju", torch.from_numpy(ju.astype(np.int64)), persistent=False)
-        dt = _DTYPES[cfg.dtype]
+        dt = DTYPES[cfg.dtype]
         self.bottom = MLP(cfg.num_dense_features, cfg.bottom_mlp, final_activation=True,
                           dtype=dt, generator=generator)
         self.top = MLP(cfg.embedding_dim + len(iu), cfg.top_mlp, dtype=dt,
                        generator=generator)
 
+    def jax_tree(self) -> dict:
+        return {"bottom": self.bottom.jax_tree(), "top": self.top.jax_tree()}
+
     def forward(self, dense: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         """dense [B, ND] f32; emb [B, NS, D] -> logits [B] f32."""
-        if emb.shape[1] != self.cfg.num_sparse_features:
-            raise ValueError(
-                f"emb carries {emb.shape[1]} sparse features, model configured "
-                f"for {self.cfg.num_sparse_features}"
-            )
-        if dense.shape[1] != self.cfg.num_dense_features:
-            raise ValueError(
-                f"dense carries {dense.shape[1]} features, model configured "
-                f"for {self.cfg.num_dense_features}"
-            )
+        check_widths(self.cfg, dense, emb)
         x = self.bottom(dense)  # [B, D]
         feats = torch.cat([x[:, None, :], emb.to(x.dtype)], dim=1)  # [B, F, D]
         f32 = feats.to(torch.float32)

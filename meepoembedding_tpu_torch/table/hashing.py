@@ -56,8 +56,9 @@ def _u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & M32
 
 
-def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
-    """(h * c) mod 2^32 for h in [0, 2^32) held in int64."""
+def mul32(h: torch.Tensor, c) -> torch.Tensor:
+    """(h * c) mod 2^32 for h and c (an int or a tensor) in [0, 2^32),
+    held in int64."""
     lo_part = h * (c & 0xFFFF)
     hi_part = ((h * (c >> 16)) & 0xFFFF) << 16
     return (lo_part + hi_part) & M32
@@ -66,9 +67,9 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
 def fmix32(h: torch.Tensor) -> torch.Tensor:
     """murmur3 finalizer on uint32 values held in int64."""
     h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
+    h = mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
+    h = mul32(h, 0xC2B2AE35)
     h = h ^ (h >> 16)
     return h
 
@@ -76,7 +77,7 @@ def fmix32(h: torch.Tensor) -> torch.Tensor:
 def hash_pair(hi: torch.Tensor, lo: torch.Tensor, salt: int) -> torch.Tensor:
     """uint32 hash (held in int64) of an (hi, lo) id pair under a salt."""
     uhi, ulo = _u32(hi), _u32(lo)
-    h = _mul32(ulo, 0xCC9E2D51) ^ _mul32(uhi, 0x1B873593) ^ salt
+    h = mul32(ulo, 0xCC9E2D51) ^ mul32(uhi, 0x1B873593) ^ salt
     return fmix32(h ^ (fmix32(uhi) >> 1))
 
 
@@ -127,7 +128,7 @@ def default_rows(hi, lo, dim: int, scale: float, dtype=torch.float32,
         raise ValueError(f"initializer must be one of {INITIALIZERS}, got {kind!r}")
     h0 = hash_pair(hi, lo, SALT_INIT)  # [n]
     d = torch.arange(dim, dtype=torch.int64, device=hi.device)
-    bits = fmix32((h0[:, None] + _mul32(d & M32, 0x9E3779B9)[None, :]) & M32)
+    bits = fmix32((h0[:, None] + mul32(d & M32, 0x9E3779B9)[None, :]) & M32)
     # top 24 bits -> uniform [0, 1), exact in f32
     u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
     if kind == "uniform":

@@ -288,25 +288,28 @@ class DynamicEmbeddingTable:
         fixed-capacity table that cannot hold it raises."""
         from meepoembedding_tpu_torch import checkpoint
 
-        total = sum(checkpoint.read_manifest(path).get("counts", [0]))
-        while (
-            self.cfg.grow_at_load is not None
-            and total > self.cfg.grow_at_load * self.spec.capacity
-        ):
-            self.cfg = dataclasses.replace(self.cfg, capacity=self.cfg.capacity * 2)
-            self.spec = TableSpec.from_config(self.cfg, num_shards=1)
+        m = checkpoint.read_manifest(path)
+        total = sum(m.get("counts", [0]))
+        cfg = self.cfg
+        spec = TableSpec.from_config(cfg, num_shards=1)
+        while cfg.grow_at_load is not None and total > cfg.grow_at_load * spec.capacity:
+            cfg = dataclasses.replace(cfg, capacity=cfg.capacity * 2)
+            spec = TableSpec.from_config(cfg, num_shards=1)
+        # a checkpoint that does not fit raises here, with the table intact
+        checkpoint.check_manifest(spec, m)
         # drop the old planes before the new ones are allocated: at 2^27 slots
         # a shard holds ~18.5 GiB
         self.shard = None
-        shards, manifest = checkpoint.restore_shards(self.spec, path, 1, device=self.device)
-        self.shard = shards[0]
+        shards, manifest = checkpoint.restore_shards(spec, path, 1, device=self.device)
+        self.cfg, self.spec, self.shard = cfg, spec, shards[0]
         self.step = manifest["step"]
         return manifest
 
     def export_items(self, chunk_buckets: int = 4096) -> Iterator[tuple]:
         """Stream (ids64, rows, freq, accum) of the live rows to the host as
-        numpy chunks of `chunk_buckets` buckets, in slot order. A bf16 table's
-        rows come widened to f32 (exactly)."""
+        numpy chunks of `chunk_buckets` buckets, in slot order. The rows keep
+        the values plane's dtype, as in the reference, so they come as a CPU
+        tensor (numpy has no bfloat16); the rest are numpy arrays."""
         from meepoembedding_tpu_torch import checkpoint
 
         shard = self.shard
@@ -319,4 +322,4 @@ class DynamicEmbeddingTable:
             part = checkpoint._fetch_chunk(shard, (lanes + b0 * LANES).to(torch.int32))
             freq = part["freq"].numpy()
             acc = part["accum"].numpy() if "accum" in part else np.zeros_like(freq, np.float32)
-            yield part["ids"].numpy(), part["values"].float().numpy(), freq, acc
+            yield part["ids"].numpy(), part["values"], freq, acc

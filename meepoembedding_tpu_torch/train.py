@@ -4,10 +4,12 @@ One step: dedup the batch's ids -> `table_ops.lookup_train` (probe,
 admission, insert planning, fresh keys' side-plane writes; the rows of the
 unique ids, fresh ones at their init) -> the rows in batch order through
 `dedup.GatherRows` (K2 forward; K1 segment sum backward, on the dedup's own
-sort) -> DLRM forward and BCE loss -> backward -> the sparse update
-(`optim.apply_sparse_grads_ctx`: the values plane receives init + optimizer
-delta in one unique-row K1 launch, the rowwise accumulator one K3 launch)
--> dense grad clip, LR schedule and the
+sort) -> the model's forward and loss (`models.common.model_loss`: BCE, or
+the two-tower's in-batch softmax with its item keys and, with
+`ModelConfig.logq_correction`, the host's log-q estimate) -> backward ->
+the sparse update (`optim.apply_sparse_grads_ctx`: the values plane
+receives init + optimizer delta in one unique-row K1 launch, the rowwise
+accumulator one K3 launch) -> dense grad clip, LR schedule and the
 reference's Adam. The table is updated in place. The step syncs with the
 host once per insert-planning round (`table_ops.plan_insert` stops when no
 key is pending) and once more to read the loss. Between steps,
@@ -35,8 +37,9 @@ import torch
 from meepoembedding_tpu_torch.config import ModelConfig, RunConfig, TableConfig
 from meepoembedding_tpu_torch.metrics import JsonlLogger, Meter, StreamingAUC
 from meepoembedding_tpu_torch.models import build_model
-from meepoembedding_tpu_torch.models.common import model_inputs, model_loss
+from meepoembedding_tpu_torch.models.common import batch_item_key, model_inputs, model_loss
 from meepoembedding_tpu_torch.ops import dedup, optim
+from meepoembedding_tpu_torch.ops.itemfreq import ItemFrequencyEstimator, item_keys_np
 from meepoembedding_tpu_torch.table import hashing, table_ops
 from meepoembedding_tpu_torch.table.layout import (
     TableShard,
@@ -44,10 +47,20 @@ from meepoembedding_tpu_torch.table.layout import (
     alloc_shard,
     resolve_device,
 )
-from meepoembedding_tpu_torch.weights import from_jax_params, to_jax_adam_state, to_jax_params
+from meepoembedding_tpu_torch.weights import (
+    from_jax_adam_state,
+    from_jax_params,
+    param_leaves,
+    to_jax_adam_state,
+    to_jax_params,
+)
 
 COUNTER_NAMES = ("hits", "misses", "inserts", "drops", "evictions", "spills",
                  "promotes", "denied")
+
+
+def _host_ids(ids) -> np.ndarray:
+    return ids.cpu().numpy() if isinstance(ids, torch.Tensor) else np.asarray(ids, np.int64)
 
 
 def _tensor(x, device, dtype) -> torch.Tensor:
@@ -62,7 +75,10 @@ class Trainer:
     same seed gives the same tower on every device), dense Adam from zero.
     `shard` starts the trainer on an existing table shard of the same
     geometry, which it then updates in place. `spill` is an optional
-    `KVBackend` that `maintenance()` spills evicted rows to."""
+    `KVBackend` that `maintenance()` spills evicted rows to.
+    `model_cfg.logq_correction` needs a retrieval model (`two_tower`): each
+    step then subtracts the item-frequency sketch's log q from the
+    in-batch softmax's columns."""
 
     def __init__(self, run_cfg: RunConfig, table_cfg: TableConfig, model_cfg: ModelConfig,
                  device="cuda", generator: Optional[torch.Generator] = None,
@@ -81,7 +97,8 @@ class Trainer:
         self.shard = shard
         gen = generator if generator is not None else torch.Generator().manual_seed(run_cfg.seed)
         self.model = build_model(model_cfg, generator=gen).to(self.device)
-        self.params = list(self.model.parameters())
+        # in the reference's flatten order, so the Adam leaves line up
+        self.params = [p for p, _ in param_leaves(self.model)]
         self.opt_state = optim.dense_adam_init(self.params)
         self.step = 0
         self.spill = spill
@@ -90,6 +107,12 @@ class Trainer:
         self._async_ckpt = None
         self.auc = StreamingAUC()
         self.last_logits: Optional[torch.Tensor] = None
+        self._freq_est = None
+        if model_cfg.logq_correction:
+            if not hasattr(self.model, "loss_and_logits"):
+                raise ValueError("model.logq_correction needs a retrieval model (two_tower), "
+                                 f"not {model_cfg.kind!r}")
+            self._freq_est = ItemFrequencyEstimator()
 
     def _unique_cap(self, ids_shape) -> int:
         return self.run_cfg.unique_cap or int(np.prod(ids_shape))
@@ -102,19 +125,24 @@ class Trainer:
         uniq = dedup.unique_pairs(hi.reshape(-1), lo.reshape(-1), self._unique_cap(ids.shape))
         # multi-hot bags ([B, S, L] ids, sentinel-padded) pool per feature
         bag_valid = hashing.is_valid(hi, lo) if ids.dim() == 3 else None
-        return ids.shape, dense, label, uniq, bag_valid
+        ikey = batch_item_key(self.model, hi, lo)
+        return ids.shape, dense, label, uniq, bag_valid, ikey
 
     def train_step(self, batch: dict) -> dict:
         """One step on a batch {"dense": [B, ND], "ids": [B, S] or [B, S, L]
         int64, "label": [B]}. Returns {"loss": float}; the step's logits stay
         in `last_logits`."""
         spec, rc = self.spec, self.run_cfg
-        shape, dense, label, uniq, bag_valid = self._inputs(batch)
+        shape, dense, label, uniq, bag_valid, ikey = self._inputs(batch)
+        logq = None
+        if self._freq_est is not None:
+            keys = item_keys_np(_host_ids(batch["ids"]), self.model.qf)
+            logq = torch.from_numpy(self._freq_est.update_and_logq(keys)).to(self.device)
         ctx = table_ops.lookup_train(spec, self.shard, uniq.hi, uniq.lo, uniq.valid, self.step)
         rows_u = ctx.rows_u.detach().requires_grad_(True)
         flat = dedup.GatherRows.apply(rows_u, uniq.inverse, uniq.order, uniq.sorted_ids)
         emb = model_inputs(self.model, flat, shape, bag_valid, spec.dim, self.model_cfg.combiner)
-        loss, logits = model_loss(self.model, dense, emb, bag_valid, label)
+        loss, logits = model_loss(self.model, dense, emb, bag_valid, label, ikey, logq=logq)
         g_rows, *g_dense = torch.autograd.grad(loss, [rows_u, *self.params])
         with torch.no_grad():
             optim.apply_sparse_grads_ctx(spec, self.shard, ctx, g_rows)
@@ -133,13 +161,13 @@ class Trainer:
         """Probe-only scoring of a labelled batch: unknown ids read zero rows
         and nothing is inserted. Returns {"loss": float, "logits": [B]}."""
         spec = self.spec
-        shape, dense, label, uniq, bag_valid = self._inputs(batch)
+        shape, dense, label, uniq, bag_valid, ikey = self._inputs(batch)
         pr = table_ops.probe(spec, self.shard, uniq.hi, uniq.lo, uniq.valid)
         rows = table_ops.lookup_rows(self.shard, torch.where(pr.found, pr.slot, -1))
         flat = dedup.GatherRows.apply(rows.float(), uniq.inverse, uniq.order,
                                       uniq.sorted_ids)
         emb = model_inputs(self.model, flat, shape, bag_valid, spec.dim, self.model_cfg.combiner)
-        loss, logits = model_loss(self.model, dense, emb, bag_valid, label)
+        loss, logits = model_loss(self.model, dense, emb, bag_valid, label, ikey)
         return {"loss": float(loss), "logits": logits}
 
     def counters(self) -> dict:
@@ -154,7 +182,7 @@ class Trainer:
         """The tower and its Adam state as the reference's pytree leaves
         (host copies)."""
         return {"params": to_jax_params(self.model),
-                "opt_state": to_jax_adam_state(self.opt_state)}
+                "opt_state": to_jax_adam_state(self.opt_state, self.model)}
 
     def save_checkpoint(self, path: str, extras: Optional[dict] = None,
                         async_: bool = False) -> dict:
@@ -182,9 +210,12 @@ class Trainer:
 
     def load_checkpoint(self, path: str) -> dict:
         """Restore the table, the tower and (when saved) its Adam state from
-        a checkpoint in the reference's format."""
+        a checkpoint in the reference's format. A checkpoint of another dim
+        or optimizer raises before the old planes are dropped, so the
+        trainer keeps its table."""
         from meepoembedding_tpu_torch import checkpoint
 
+        checkpoint.check_manifest(self.spec, checkpoint.read_manifest(path))
         self.shard = None  # free the old planes before the new ones land
         shards, manifest = checkpoint.restore_shards(self.spec, path, 1, device=self.device)
         self.shard = shards[0]
@@ -193,26 +224,10 @@ class Trainer:
             from_jax_params(self.model, checkpoint.load_dense(path, "params"))
             self.opt_state = optim.dense_adam_init(self.params)
         if "opt_state" in saved:
-            self.opt_state = self._adam_state(checkpoint.load_dense(path, "opt_state"))
+            self.opt_state = from_jax_adam_state(checkpoint.load_dense(path, "opt_state"),
+                                                 self.model, self.device)
         self.step = manifest["step"]
         return manifest
-
-    def _adam_state(self, leaves):
-        """The reference's (m, v, t) pytree leaves -> this trainer's state:
-        each moment list in parameter order, weights transposed to [out, in]."""
-        k = len(self.params)
-        if len(leaves) != 2 * k + 1:
-            raise ValueError(f"{len(leaves)} opt_state leaves for {k} parameters")
-
-        def moments(part):
-            out = []
-            for p, a in zip(self.params, part):
-                a = np.asarray(a, np.float32)
-                out.append(torch.from_numpy(np.ascontiguousarray(a.T if a.ndim == 2 else a))
-                           .to(self.device).reshape(p.shape))
-            return out
-
-        return moments(leaves[:k]), moments(leaves[k:2 * k]), int(leaves[2 * k])
 
     def maintenance(self) -> dict:
         """The eviction tick, off the step's path: one `evict_pass` over the

@@ -1,5 +1,6 @@
-"""Shared by the port's Trainer and lifecycle tests: one training case run
-through the port's Trainer and the JAX package's from one state, with
+"""Shared by the port's Trainer, model-zoo and lifecycle tests: one training
+case (of any model kind) run through the port's Trainer and the JAX
+package's from one state, with
 everything compared after every step and at the end; and the converters
 that carry a table shard between the two packages bit for bit
 (`numpy_planes`, `to_torch_shard`, `to_jax_shard`).
@@ -31,7 +32,7 @@ from meepoembedding_tpu.table import layout as jl
 from meepoembedding_tpu_torch.data import SyntheticConfig, SyntheticStream
 from meepoembedding_tpu_torch.table import layout as tl
 from meepoembedding_tpu_torch.train import Trainer
-from meepoembedding_tpu_torch.weights import from_jax_params
+from meepoembedding_tpu_torch.weights import from_jax_params, to_jax_params
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 INT_PLANES = ("key_hi", "key_lo", "freq", "last", "cnt", "ovf", "counters")
@@ -99,27 +100,36 @@ def assert_planes_equal(jshard, tshard, what=""):
             np.testing.assert_array_equal(y.reshape(x.shape), x, err_msg=f"{what} {kind}")
 
 
-def configs(dim, bag, kind, run_opts, steps=3):
+def configs(dim, bag, kind, run_opts, steps=3, model_kind="dlrm", nsparse=3, batch=96):
+    """(JAX configs, port configs, SyntheticConfig fields) of one case; a
+    two_tower model trains with logQ correction."""
     table = dict(dim=dim, capacity=2048, max_probe_rounds=2)
-    model = dict(num_dense_features=4, num_sparse_features=3, embedding_dim=dim,
-                 bottom_mlp=(16, dim), top_mlp=(16, 1))
-    run = dict(batch_size=96, steps=steps, seed=dim + bag, dense_learning_rate=1e-3,
+    model = dict(kind=model_kind, num_dense_features=4, num_sparse_features=nsparse,
+                 embedding_dim=dim, bottom_mlp=(16, dim), top_mlp=(16, 1),
+                 logq_correction=model_kind == "two_tower")
+    run = dict(batch_size=batch, steps=steps, seed=dim + bag, dense_learning_rate=1e-3,
                **run_opts)
     jcfg = (JRunConfig(**run), JTableConfig(**table, optimizer=JOptimizerConfig(kind=kind)),
             JModelConfig(**model))
     tcfg = (RunConfig(**run), TableConfig(**table, optimizer=OptimizerConfig(kind=kind)),
             ModelConfig(**model))
-    data = dict(num_dense=4, num_sparse=3, batch_size=96, vocab_per_feature=400, seed=bag,
-                bag_len=bag)
+    data = dict(num_dense=4, num_sparse=nsparse, batch_size=batch, vocab_per_feature=400,
+                seed=bag, bag_len=bag)
     return jcfg, tcfg, data
 
 
 def jax_step(jt, batch):
-    """`JTrainer.train_step`, keeping the logits it feeds to its AUC."""
+    """`JTrainer.train_step` (log q included), keeping the logits it feeds
+    to its AUC."""
     hi, lo = jh.split_ids(batch["ids"])
+    logq = None
+    if jt._freq_est is not None:
+        from meepoembedding_tpu.ops.itemfreq import item_keys_np
+
+        logq = jnp.asarray(jt._freq_est.update_and_logq(item_keys_np(batch["ids"], jt.model.qf)))
     jt.shard, jt.params, jt.opt_state, loss, logits = jt._step_fn(
         jt.shard, jt.params, jt.opt_state, jnp.asarray(batch["dense"]), jnp.asarray(hi),
-        jnp.asarray(lo), jnp.asarray(batch["label"]), jnp.int32(jt.step), None)
+        jnp.asarray(lo), jnp.asarray(batch["label"]), jnp.int32(jt.step), logq)
     jt.step += 1
     return float(loss), np.asarray(logits)
 
@@ -139,8 +149,40 @@ def assert_tables_match(jspec, jshard, tshard):
         np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL, err_msg="accum")
 
 
-def run_trainer_case(dim, bag, kind, run_opts, check_eval=False):
-    (jrc, jtc, jmc), (rc, tc, mc), data = configs(dim, bag, kind, run_opts)
+def zero_grad_leaves(mc) -> set:
+    """Leaves whose gradient is 0 in exact arithmetic: DIN's last attention
+    bias adds one constant to every logit of a softmax, which the softmax
+    ignores. Both packages move it by rounding noise, which Adam's
+    normalisation scales up to ~1e-5 a step; it reaches no output, and the
+    loss and logits, which hold the rest of the tower, are compared."""
+    return {2 * len(mc.attention_mlp) + 1} if mc.kind == "din" else set()
+
+
+def logits_tol(tt) -> dict:
+    """TOL, but for the two-tower's margins: a margin is the difference of
+    two scores of magnitude up to tau = exp(log_tau) (~10), so its rounding
+    error scales with tau, not with the margin; its atol is rtol * tau."""
+    if tt.model_cfg.kind != "two_tower":
+        return TOL
+    tau = float(torch.exp(tt.model.log_tau.detach()))
+    return dict(rtol=TOL["rtol"], atol=TOL["rtol"] * tau)
+
+
+def assert_params_match(jt, tt):
+    """The two trainers' dense params, leaf for leaf in the reference's
+    order, within TOL (but `zero_grad_leaves`)."""
+    jleaves = jax.tree_util.tree_leaves(jt.params)
+    tleaves = to_jax_params(tt.model)
+    assert len(jleaves) == len(tleaves)
+    skip = zero_grad_leaves(tt.model_cfg)
+    for j, (jp, tp) in enumerate(zip(jleaves, tleaves)):
+        if j not in skip:
+            np.testing.assert_allclose(tp, np.asarray(jp), **TOL, err_msg=f"param leaf {j}")
+
+
+def run_trainer_case(dim, bag, kind, run_opts, check_eval=False, **model):
+    """`model`: configs()'s model_kind, nsparse and batch."""
+    (jrc, jtc, jmc), (rc, tc, mc), data = configs(dim, bag, kind, run_opts, **model)
     jt = JTrainer(jrc, jtc, jmc)
     tt = Trainer(rc, tc, mc, device="cpu")
     from_jax_params(tt.model, jax.tree_util.tree_map(np.asarray, jt.params))
@@ -153,14 +195,13 @@ def run_trainer_case(dim, bag, kind, run_opts, check_eval=False):
         jloss, jlogits = jax_step(jt, batch)
         tloss = tt.train_step(batch)["loss"]
         np.testing.assert_allclose(tloss, jloss, **TOL, err_msg=f"loss, step {step}")
-        np.testing.assert_allclose(tt.last_logits.numpy(), jlogits, **TOL,
+        np.testing.assert_allclose(tt.last_logits.numpy(), jlogits, **logits_tol(tt),
                                    err_msg=f"logits, step {step}")
     assert_tables_match(jt.spec, jt.shard, tt.shard)
     assert tt.counters()["inserts"] > 0 and tt.counters()["hits"] > 0
-    for jp, tp in zip(jax.tree_util.tree_leaves(jt.params), tt.params):
-        jp = np.asarray(jp)
-        np.testing.assert_allclose(tp.detach().numpy(), jp.T if jp.ndim == 2 else jp, **TOL)
+    assert_params_match(jt, tt)
     if check_eval:  # probe-only eval on a batch of known and unknown ids
         jev, tev = jt.eval_step(batches[-1]), tt.eval_step(batches[-1])
         np.testing.assert_allclose(tev["loss"], jev["loss"], **TOL)
-        np.testing.assert_allclose(tev["logits"].numpy(), np.asarray(jev["logits"]), **TOL)
+        np.testing.assert_allclose(tev["logits"].numpy(), np.asarray(jev["logits"]),
+                                   **logits_tol(tt))

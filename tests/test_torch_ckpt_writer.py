@@ -86,7 +86,7 @@ def test_port_checkpoint_restores_into_jax_trainer(tmp_path):
     params, opt = _jax_dense(j2)
     for got, want in zip(params, to_jax_params(tt.model)):
         np.testing.assert_array_equal(got, want)
-    for got, want in zip(opt, to_jax_adam_state(tt.opt_state)):
+    for got, want in zip(opt, to_jax_adam_state(tt.opt_state, tt.model)):
         assert got.dtype == want.dtype and got.shape == want.shape
         np.testing.assert_array_equal(got, want)
     assert int(opt[-1]) == 2
@@ -324,7 +324,7 @@ def test_async_save_snapshot_isolated_from_later_steps(tmp_path):
     _, tt, later, _, _ = _trainers()
     want_rows = tckpt.export_shard_arrays(tt.spec, tt.shard)
     want_params = to_jax_params(tt.model)
-    want_opt = to_jax_adam_state(tt.opt_state)
+    want_opt = to_jax_adam_state(tt.opt_state, tt.model)
     p = str(tmp_path / "snap")
     tt.save_checkpoint(p, async_=True)
     for b in later[:3]:

@@ -499,3 +499,52 @@ def test_streamed_save_and_restore_on_card_match_cpu(tmp_path, monkeypatch):
     (on_card,), _ = checkpoint.restore_shards(spec, str(tmp_path / "g"), 1, device="cuda")
     (on_cpu,), _ = checkpoint.restore_shards(spec, str(tmp_path / "c"), 1, device="cpu")
     _assert_shards_equal(on_card, on_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ctr_mlp", "dcn", "deepfm", "din", "bst", "two_tower"])
+def test_zoo_train_steps_on_card_match_cpu(kind):
+    """3 Trainer steps of each model kind on the card and on the CPU from
+    one state: integer planes and counters equal, values, accumulators and
+    loss within rtol 1e-5 / atol 1e-6, logits too (a two-tower's margins,
+    differences of scores of magnitude tau, within atol 1e-5 * tau). The
+    two-tower's tower is held still (dense lr 0): Adam turns its near-zero
+    gradients into steps of ~lr whose sign is rounding."""
+    from meepoembedding_tpu_torch.config import ModelConfig, RunConfig, TableConfig
+    from meepoembedding_tpu_torch.data import SyntheticConfig, SyntheticStream
+    from meepoembedding_tpu_torch.train import Trainer
+
+    _cuda()
+    mc = ModelConfig(kind=kind, num_dense_features=4, num_sparse_features=6, embedding_dim=16,
+                     bottom_mlp=(32, 16), top_mlp=(32, 1), logq_correction=kind == "two_tower")
+    bag = 5 if kind in ("din", "bst") else 1
+    batches = list(SyntheticStream(SyntheticConfig(num_dense=4, num_sparse=6, batch_size=256,
+                                                   seed=3, bag_len=bag)).batches(3))
+    run = RunConfig(seed=1, dense_learning_rate=0.0 if kind == "two_tower" else 1e-3)
+    trs = [Trainer(run, TableConfig(dim=16, capacity=1 << 14), mc, device=d)
+           for d in ("cpu", "cuda")]
+    out = [[(tr.train_step(b)["loss"], tr.last_logits.cpu()) for b in batches] for tr in trs]
+    cpu, gpu = (tr.shard for tr in trs)
+    for name in ("key_hi", "key_lo", "freq", "last", "cnt", "ovf", "counters"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    tol = dict(rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gpu.values.cpu(), cpu.values, **tol)
+    torch.testing.assert_close(gpu.opt_rowwise[0].cpu(), cpu.opt_rowwise[0], **tol)
+    torch.testing.assert_close(torch.tensor([o[0] for o in out[1]]),
+                               torch.tensor([o[0] for o in out[0]]), **tol)
+    atol = 1e-5 * float(torch.exp(trs[0].model.log_tau.detach())) if kind == "two_tower" else 1e-6
+    torch.testing.assert_close(torch.stack([o[1] for o in out[1]]),
+                               torch.stack([o[1] for o in out[0]]), rtol=1e-5, atol=atol)
+
+
+@pytest.mark.gpu
+def test_criteo_stream_parses_natively(tmp_path):
+    from meepoembedding_tpu_torch.data import CriteoStream, PrefetchStream
+    from meepoembedding_tpu_torch.data.criteo import write_synthetic_criteo
+
+    _cuda()
+    p = tmp_path / "s.tsv"
+    write_synthetic_criteo(str(p), 256, seed=1)
+    stream = PrefetchStream(CriteoStream(str(p), 64), depth=2)
+    assert stream.parser == "native"
+    assert len(list(stream.batches())) == 4

@@ -137,8 +137,8 @@ def test_unported_paths_raise(ckpt):
     with pytest.raises(NotImplementedError):
         ScoringService(path, TableConfig(**TABLE), ModelConfig(**MODEL), quantize="int8",
                        device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model(ModelConfig(**{**MODEL, "kind": "dcn"}))
+    with pytest.raises(ValueError, match="unknown model kind"):
+        build_model(ModelConfig(**{**MODEL, "kind": "wide_and_deep"}))
 
 
 def test_chip_smoke_rehearses_on_cpu():
@@ -159,6 +159,7 @@ def test_chip_smoke_rehearses_on_cpu():
     assert "each pass's spilled rows equal the window's planes" in out.stdout
     assert "rows equal their spilled payload bit for bit" in out.stdout
     assert "every earlier row's planes kept bit for bit" in out.stdout
+    assert "zoo din: a checkpoint restored into a ScoringService" in out.stdout
     assert "rehearsal finished" in out.stdout
     assert '"ok": true' not in out.stdout
     assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke"))

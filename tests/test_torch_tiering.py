@@ -249,7 +249,7 @@ def test_promotion_slot_race_respills_no_row_lost():
     for _ in range(2):
         rows = t.lookup(a_ids, train=True)
         t.apply_grads(rows * 0.1 + 0.01)
-    trained = {int(k): rows[i].copy() for ids, rows, _, _ in t.export_items()
+    trained = {int(k): rows[i].numpy() for ids, rows, _, _ in t.export_items()
                for i, k in enumerate(ids)}
     t.step = 50
     assert t.evict() == 120
