@@ -21,13 +21,18 @@ Each is scored by held-out AUC (probe-only eval). parity holds when
 |mean_dynamic - mean_static| <= 2 * max(std_static, 1e-4) + 1e-3, and
 policy_parity when the policy runs' mean does.
 
+Int8 serving (after bench_serving_auc.py): the dynamic trainer of stream
+seed 0 trains on its 400K lines and saves a checkpoint; a `ScoringService`
+scores the held-out 64K lines from it twice, from the f32 table and with
+`quantize="int8"`. int8_gate holds when |AUC_int8 - AUC_f32| < 1e-3.
+
 Zoo differentiation (after bench_model_zoo.py): the interaction stream
 (`interaction_scale=2.5`, rank 4, 6 pairs, 800 values a feature, signal 0.2;
 192K + 32K lines) trains dlrm, deepfm, dcn and ctr_mlp (dim 16, 2^18
 slots); differentiates when max(dlrm, deepfm, dcn) - ctr_mlp > 0.005.
 
 The TSV files go to build/quality/ (git-ignored) and are removed at the
-end. Prints progress on stderr and one JSON line on stdout: both gates'
+end. Prints progress on stderr and one JSON line on stdout: the gates'
 numbers, the seconds each took, the card's name and power limit.
 """
 
@@ -56,6 +61,7 @@ from meepoembedding_tpu_torch.config import (
 from meepoembedding_tpu_torch.data import CriteoStream, PrefetchStream
 from meepoembedding_tpu_torch.data.criteo import NUM_SPARSE, write_synthetic_criteo_signal
 from meepoembedding_tpu_torch.metrics import StreamingAUC
+from meepoembedding_tpu_torch.serving import ScoringService
 from meepoembedding_tpu_torch.table.layout import TableSpec
 from meepoembedding_tpu_torch.tiering import SpillCodec
 from meepoembedding_tpu_torch.train import Trainer
@@ -182,6 +188,41 @@ def parity_gate(args, dev, root: Path) -> dict:
     }
 
 
+def int8_gate(args, dev, root: Path) -> dict:
+    b = args.batch
+    train_steps, eval_steps = args.parity_lines // b, args.parity_eval_lines // b
+    tsv, ckpt = root / "int8.tsv", root / "int8-ckpt"
+    write_synthetic_criteo_signal(str(tsv), args.parity_lines + args.parity_eval_lines, seed=7,
+                                  stream_seed=101)
+    run = RunConfig(batch_size=b, steps=train_steps, seed=0, dense_learning_rate=1e-3,
+                    log_every=10**9)
+    table = TableConfig(dim=DIM, capacity=1 << 20, optimizer=rowwise())
+    tr = Trainer(run, table, model_cfg(), device=dev)
+    it = batches(tsv, b, train_steps + eval_steps)
+    for _ in range(train_steps):
+        tr.train_step(next(it))
+    tr.save_checkpoint(str(ckpt))
+    held = [next(it) for _ in range(eval_steps)]
+    del tr
+    out = {"train_steps": train_steps, "eval_examples": eval_steps * b}
+    for mode in ("none", "int8"):
+        svc = ScoringService(str(ckpt), table, model_cfg(), quantize=mode, device=dev)
+        auc = StreamingAUC()
+        for h in held:
+            p = svc.score(h["dense"], h["ids"]).astype(np.float64)
+            auc.update(torch.from_numpy(np.log(p / (1 - p) + 1e-12)),
+                       torch.from_numpy(h["label"]))
+        out[f"auc_{'f32' if mode == 'none' else mode}"] = auc.compute()
+        if mode == "int8":
+            out["int8_table_bytes"] = svc.table.nbytes()
+        log(f"int8 gate {mode}: eval AUC {auc.compute():.5f}")
+        del svc
+    out["delta"] = out["auc_int8"] - out["auc_f32"]
+    out["int8_gate"] = bool(abs(out["delta"]) < 1e-3)
+    tsv.unlink()
+    return out
+
+
 def zoo_gate(args, dev, root: Path) -> dict:
     b = args.batch
     train_steps, eval_steps = args.zoo_lines // b, args.zoo_eval_lines // b
@@ -223,6 +264,9 @@ def main() -> int:
         parity = parity_gate(args, dev, root)
         seconds["parity"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        int8 = int8_gate(args, dev, root)
+        seconds["int8"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         zoo = zoo_gate(args, dev, root)
         seconds["zoo"] = time.perf_counter() - t0
     finally:
@@ -230,8 +274,8 @@ def main() -> int:
     print(json.dumps({
         "metric": "criteo_format_eval_auc_port",
         "parity": parity["parity"], "policy_parity": parity["policy_parity"],
-        "differentiates": zoo["differentiates"],
-        "auc_parity": parity, "zoo": zoo, "seconds": seconds,
+        "differentiates": zoo["differentiates"], "int8_gate": int8["int8_gate"],
+        "auc_parity": parity, "int8": int8, "zoo": zoo, "seconds": seconds,
         "device": torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu",
         "card": card_line(dev), "torch": torch.__version__,
     }))

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch + CUDA port's serving, training, table-lifecycle and
-model-zoo paths on one card and check them.
+"""Run the PyTorch + CUDA port's serving (f32 and int8), training,
+table-lifecycle, model-zoo, embed-API, retrieval and table-group paths on
+one card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -42,6 +43,17 @@ Phases (any failure exits non-zero and prints no result line):
            tower on the CPU, and one POST /score against the direct score.
            Fails unless a request launches 4 row_gather (the probe's 2
            round groups, each both key planes; the values; the inverse).
+  int8     with the counters set to 0 just before it, on the serve phase's
+           checkpoint (8,388,608 rows, dim 32): an int8 ScoringService
+           (QuantizedTable.from_checkpoint); the 2^20 kept rows read back
+           within range/510 (half a code step) + an ulp of the range + an
+           ulp of the row's largest magnitude (the dequantizer's two
+           roundings; ids up to 2^62), unknown ids read zeros; 32 requests of 4096 x 26 ids
+           of the checkpoint (10% unknown) timed, their scores' largest gap
+           to the f32 service logged (and on the serve phase's requests,
+           whose assigned ids the checkpoint lacks), one POST /score equal
+           to the direct score; nbytes against the f32 state. Fails unless
+           a request launches 2 row_gather and the phase nothing else.
   train    the training path, with the counters set to 0 just before it: a
            Trainer with the default DLRM (tower from --seed) on the same
            table (2^27 slots, ~100M rows, dim 32, f32, rowwise AdaGrad)
@@ -70,7 +82,11 @@ Phases (any failure exits non-zero and prints no result line):
            index_add_), the segment sum's walk and combine pass apart, a
            check that the step's valid slots are unique, the 32-byte-sector
            bound of the 4-byte-row shapes, and the host time of one call
-           of every wrapper.
+           of every wrapper. Also the int8 lookup's two gathers (the codes'
+           [N, 8] int32 view, the [N, 4] side plane) at 8 requests'
+           positions, and, after the group phase, the user member's
+           [2^24, 64] values gather and add and the FTRL item member's
+           gather of z, n and values and its add into z, at a step's slots.
   profile  torch.profiler over 8 requests and 4 assign batches: wall time,
            device busy time and the heaviest ops of each.
   lifecycle  with the counters set to 0 just before it. (a) On the live
@@ -116,12 +132,46 @@ Phases (any failure exits non-zero and prints no result line):
            save a checkpoint that a ScoringService restores; one request's
            scores equal the trainer's eval_step logits through a sigmoid
            (rtol 1e-5).
+  embed    with the counters set to 0 just before it. (a) 3 steps of a user
+           model (logistic regression over the flattened embeddings, SGD)
+           through embed.lookup / update on a 2^16-slot table, 512 x 26
+           ids, on the card and on the CPU from one state: planes and
+           counters equal, values and accumulators within rtol 1e-5 / atol
+           1e-6. (b) 35 steps of 4096 x 26 ids on the live table, failing
+           unless a step launches what a train step does.
+  retrieval  with the counters set to 0 just before it: a two_tower (the
+           zoo's config, logQ) trains 5 + 30 steps of 4096 examples on a
+           fresh 2^23-slot table, saves, and restores into an f32 and an
+           int8 ScoringService; for each, a RetrievalService builds an
+           index of 2^20 items (25 item ids each: the 4 held-out batches'
+           items, then ids drawn from the trained ids of each column),
+           holds the top-100 of 8 queries against a brute-force f32 q @ V.T
+           (scores within 1e-4, keys equal where ranks are more than 1e-4
+           apart), times 30 requests of 256 queries at k = 100 and logs
+           evaluate's recall@{1,10,100} on the held-out batches; POST
+           /retrieve equals retrieve. Fails unless an index lookup or a
+           request launches 4 row_gather (f32) or 2 (int8).
+  group    with the counters set to 0 just before it. (a) 3 GroupTrainer
+           steps of 512 x 26 ids, card and CPU from one state, planes and
+           counters equal. (b) A GroupTrainer at config 2's width (13 dense,
+           26 sparse columns, ctr_mlp head 256-128-1) over user (dim 64,
+           rowwise AdaGrad, 2^24 slots, column 0), item (dim 32, FTRL, 2^24
+           slots, columns 1-2, one shared table) and ctx (dim 32, rowwise
+           AdaGrad, 2^25 slots, columns 3-25) takes 5 + 30 steps of 4096
+           examples, failing on drops, a non-finite loss, or other launches
+           a step than each member's optimizer gives (`member_launches`).
+           (c) At reduced depth (2^20-slot members): LFU/TTL eviction of
+           user into a HostKVStore, promotion back (rows equal their
+           payload), remove, growth of item at grow_at_load; then
+           save_checkpoint restored into a GroupScoringService, whose scores
+           equal the trainer's eval_step probabilities and POST /score.
 
 The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}. `--rehearse-on-cpu` runs the
-serve, train, lifecycle and zoo phases on the CPU at the sizes given (the
-lifecycle's reduced-depth table at 2^14 slots; the zoo on a fresh table of
---capacity slots, bags of 4, 1 + 2 steps) with the plain versions and
+limit, and {"ok": true, "device": {...}}. `--rehearse-on-cpu` runs every
+phase but the kernel checks and timings on the CPU at the sizes given (the
+lifecycle's reduced-depth table at 2^14 slots; the zoo and embed phases on
+a fresh table of --capacity slots, bags of 4, 1 + 2 steps; a 2^12-item
+index; 2^12- to 2^14-slot group members) with the plain versions and
 exits 1 without a result: a dry run of the control flow on machines without
 a card.
 """
@@ -145,7 +195,14 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from meepoembedding_tpu_torch import ModelConfig, ScoringService, TableConfig, make_http_server
+from meepoembedding_tpu_torch import (
+    ModelConfig,
+    OptimizerConfig,
+    ScoringService,
+    TableConfig,
+    embed,
+    make_http_server,
+)
 from meepoembedding_tpu_torch.backends import HostKVStore
 from meepoembedding_tpu_torch.checkpoint import export_shard_arrays, load_dense
 from meepoembedding_tpu_torch.config import LANES, PolicyConfig, RunConfig
@@ -156,6 +213,7 @@ from meepoembedding_tpu_torch.data import (
     SyntheticStream,
 )
 from meepoembedding_tpu_torch.data.criteo import write_synthetic_criteo_signal
+from meepoembedding_tpu_torch.group_train import GroupTrainer
 from meepoembedding_tpu_torch.kernels import (
     _build,
     row_gather,
@@ -174,8 +232,10 @@ from meepoembedding_tpu_torch.kernels import (
     segment_sum,
 )
 from meepoembedding_tpu_torch.ops import dedup
+from meepoembedding_tpu_torch.retrieval import RetrievalService
+from meepoembedding_tpu_torch.serving_group import GroupScoringService
 from meepoembedding_tpu_torch.table import hashing, table_ops
-from meepoembedding_tpu_torch.table.layout import TableSpec
+from meepoembedding_tpu_torch.table.layout import TableSpec, alloc_shard
 from meepoembedding_tpu_torch.table.runtime import DynamicEmbeddingTable
 from meepoembedding_tpu_torch.tiering import SpillCodec
 from meepoembedding_tpu_torch.train import Trainer
@@ -683,6 +743,26 @@ def delta(before: dict, calls: int) -> str:
     return ", ".join(f"{k} {(now[k] - before[k]) / calls:.2f}" for k in now)
 
 
+def post_json(server, path: str, body: dict) -> dict:
+    url = f"http://127.0.0.1:{server.server_address[1]}{path}"
+    req = urllib.request.Request(url, data=json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def serving(svc, fn, retrieval=None):
+    """Run fn(server) against an HTTP server of `svc`, then stop it."""
+    server = make_http_server(svc, 0, retrieval=retrieval)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        return fn(server)
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=30)
+
+
 def serve(args, dev, rng, card: str) -> dict:
     dim = 32
     table_cfg = TableConfig(dim=dim, capacity=args.capacity)
@@ -695,14 +775,12 @@ def serve(args, dev, rng, card: str) -> dict:
                                args.capacity, model_cfg, keep)
     log(f"serve: wrote checkpoint of {args.ckpt_rows} rows in "
         f"{time.perf_counter() - t0:.1f} s")
-    try:
-        at = launches()
-        t0 = time.perf_counter()
-        svc = ScoringService(str(ckpt), table_cfg, model_cfg, device=dev)
-        sync(dev)
-        restore_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(ckpt.parent, ignore_errors=True)
+    # the checkpoint stays for the int8 phase; the caller removes it
+    at = launches()
+    t0 = time.perf_counter()
+    svc = ScoringService(str(ckpt), table_cfg, model_cfg, device=dev)
+    sync(dev)
+    restore_s = time.perf_counter() - t0
     table = svc.table
     planes = [getattr(table.shard, f.name) for f in dataclasses.fields(table.shard)]
     planes = [t for p in planes for t in (p if isinstance(p, tuple) else (p,))]
@@ -822,21 +900,12 @@ def serve(args, dev, rng, card: str) -> dict:
     log("serve: scores agree with the tower on the CPU (rtol 1e-5, atol 1e-6)")
 
     # one POST /score through the HTTP server
-    server = make_http_server(svc, 0)
-    th = threading.Thread(target=server.serve_forever, daemon=True)
-    th.start()
-    try:
-        body = json.dumps({"dense": dense.tolist(), "ids": ids.tolist()}).encode()
-        url = f"http://127.0.0.1:{server.server_address[1]}/score"
-        with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=120) as r:
-            http_scores = np.asarray(json.loads(r.read())["scores"])
-    finally:
-        server.shutdown()
-        server.server_close()
-        th.join(timeout=30)
+    body = {"dense": dense.tolist(), "ids": ids.tolist()}
+    http_scores = serving(svc, lambda s: post_json(s, "/score", body))["scores"]
     np.testing.assert_allclose(http_scores, scores[0], atol=1e-6)
     log("serve: POST /score matches the direct score")
-    return {"svc": svc, "requests": reqs[3:], "assigned": kept_ids}
+    return {"svc": svc, "requests": reqs[3:], "assigned": kept_ids, "ckpt": ckpt,
+            "written": {"ids": written["ids"][:keep], "values": written["values"]}}
 
 
 def train(args, table, dev, card: str) -> dict:
@@ -1809,6 +1878,626 @@ def time_lifecycle_kernels(tr, policy, seed: int) -> list:
     return out
 
 
+# --- shared by the later phases ---------------------------------------------------
+
+TRAIN_STEP_LAUNCHES = {"row_scatter_set": 1, "row_scatter_add": 1, "row_merge_add": 3,
+                       "row_gather": 4}  # a train step's, and 1 gather a planning round
+
+
+def run_steps(name: str, step, batches, dev, card: str, want=None) -> dict:
+    """`step(batch)` -> loss over the batches: the first 5 (1 in a
+    rehearsal) warm up, the rest are timed. Fails on a non-finite loss and,
+    on the card, unless each step launches exactly `want` (row_gather: plus
+    1 a planning round). Returns the timings and the launches a step."""
+    warm = 1 if dev.type == "cpu" else 5
+    at, rounds0 = launches(), table_ops.plan_insert.rounds
+    losses, lat = [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        loss = step(b)  # reading the loss syncs
+        lat.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if not np.isfinite(loss):
+            raise AssertionError(f"{name} step {i}: loss {loss}")
+    sync(dev)
+    steps = len(batches)
+    rounds = table_ops.plan_insert.rounds - rounds0
+    per = {k: v / steps for k, v in _launch_delta(at).items()}
+    lat = np.asarray(lat[warm:])
+    shape = batches[0]["ids"].shape
+    out = {"p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+           "examples_per_s": shape[0] * len(lat) / (lat.sum() / 1e3),
+           "ids_per_s": int(np.prod(shape)) * len(lat) / (lat.sum() / 1e3),
+           "loss_first": losses[0], "loss_last": losses[-1], "rounds": rounds / steps}
+    log(f"{name}: {warm} warm-up + {len(lat)} timed steps of {' x '.join(map(str, shape))} "
+        f"ids: step p50 {out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms; "
+        f"{out['examples_per_s']:.0f} examples/s, {out['ids_per_s']:.0f} ids/s on {card}; "
+        f"loss first {losses[0]:.6f}, last {losses[-1]:.6f}; launches per step: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+        + f", planning rounds {rounds / steps:.2f}")
+    if dev.type == "cuda" and want is not None:
+        for k, w in want.items():
+            w = w + rounds / steps if k == "row_gather" else w
+            if abs(per[k] - w) > 1e-9:
+                raise AssertionError(f"{name}: {k} launched {per[k]:.2f} times a step, "
+                                     f"not {w:.2f}")
+    return out
+
+
+def check_drops(name: str, c0: dict, c1: dict, share: float = 0.0) -> None:
+    """Fails on drops above `share` of the inserts between two counter
+    readings (0 on a fresh table; the live table's phases allow 1%)."""
+    drops, inserts = c1["drops"] - c0["drops"], c1["inserts"] - c0["inserts"]
+    log(f"{name}: inserts {inserts}, hits {c1['hits'] - c0['hits']}, drops {drops}")
+    if drops > share * inserts:
+        raise AssertionError(f"{name}: {drops} drops of {inserts} inserts")
+
+
+def planes_agree(name: str, card_shard, cpu_shard) -> dict:
+    """Card and CPU shards: integer planes and counters equal, float planes
+    within rtol 1e-5 / atol 1e-6 (`check_train_parity`'s tolerance).
+    Returns the largest differences."""
+    for plane in ("key_hi", "key_lo", "freq", "last", "cnt", "ovf", "counters"):
+        if not torch.equal(getattr(card_shard, plane).cpu(), getattr(cpu_shard, plane)):
+            raise AssertionError(f"{name}: {plane} differs between card and CPU")
+    errs = {}
+    floats = [("values", card_shard.values, cpu_shard.values)]
+    floats += [(f"rowwise{j}", a, b) for j, (a, b) in
+               enumerate(zip(card_shard.opt_rowwise, cpu_shard.opt_rowwise))]
+    floats += [(f"fulldim{j}", a, b) for j, (a, b) in
+               enumerate(zip(card_shard.opt_fulldim, cpu_shard.opt_fulldim))]
+    for plane, a, b in floats:
+        a = a.cpu()
+        errs[plane] = float((a - b).abs().max())
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6,
+                                   msg=lambda m, p=plane: f"{name} {p}: {m}")
+    return errs
+
+
+# --- int8 serving ------------------------------------------------------------------
+
+def int8(args, res, dev, card: str) -> dict:
+    """The int8 phase on the serve phase's checkpoint (module docstring)."""
+    svc, written = res["svc"], res["written"]
+    rng = np.random.default_rng(args.seed + 47)
+    t0 = time.perf_counter()
+    svc8 = ScoringService(str(res["ckpt"]), svc.table_cfg, svc.model_cfg, quantize="int8",
+                          device=dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    q = svc8.table
+    f32_bytes = sum(t.numel() * t.element_size() for t in _planes(svc.table.shard))
+    log(f"int8: a QuantizedTable of {len(q)} rows (dim {q.dim}) built from the checkpoint "
+        f"with its ScoringService in {build_s:.2f} s: {q.nbytes()} bytes on {dev} against "
+        f"the f32 table state's {f32_bytes} ({f32_bytes / q.nbytes():.1f}x) and "
+        f"{len(q) * (8 + 4 * q.dim)} bytes of f32 rows and ids "
+        f"({len(q) * (8 + 4 * q.dim) / q.nbytes():.2f}x)")
+    if len(q) != args.ckpt_rows:
+        raise AssertionError(f"the int8 table holds {len(q)} rows, not {args.ckpt_rows}")
+
+    # every row read back within half a code step, range / 510, of the f32
+    # row, plus one rounding each of the scaled code (an ulp of the range)
+    # and of the sum (an ulp of the row's largest magnitude)
+    ids, vals = written["ids"], written["values"]
+    at = launches()
+    got = q.lookup(torch.from_numpy(ids).to(dev)).cpu().numpy()
+    rng_row = vals.max(1) - vals.min(1)
+    bound = rng_row / 510 + np.spacing(rng_row) + np.spacing(np.abs(vals).max(1))
+    err = np.abs(got - vals)
+    if not np.all(err <= bound[:, None]):
+        raise AssertionError(f"int8 rows off by more than range/510 + 2 ulp: worst "
+                             f"{float((err - bound[:, None]).max())} over")
+    unknown = -rng.integers(1, 2**62, size=4096)
+    if q.lookup(torch.from_numpy(unknown).to(dev)).any():
+        raise AssertionError("unknown ids read non-zero int8 rows")
+    log(f"int8: {len(ids)} rows read back ({int((ids >= 2**31).sum())} of ids >= 2^31) within "
+        f"range/510 + 2 ulp of the f32 rows (largest error {float(err.max()):.3e}, largest "
+        f"range/510 {float(rng_row.max() / 510):.3e}); 4096 unknown ids read zeros; "
+        f"launches {_launch_delta(at)}")
+
+    # requests of checkpoint ids (10% unknown): int8 against the f32 service
+    nd, ns = svc.model_cfg.num_dense_features, svc.model_cfg.num_sparse_features
+    reqs = [(rng.standard_normal((args.batch, nd), dtype=np.float32),
+             make_request(rng, [ids], args.batch, ns)) for _ in range(args.requests + 3)]
+    for dense, r in reqs[:3]:
+        svc8.score(dense, r)
+    lat, gap, gathers = [], 0.0, 0
+    for dense, r in reqs[3:]:
+        at = launches()
+        t0 = time.perf_counter()
+        p8 = svc8.score(dense, r)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        gathers += _launch_delta(at)["row_gather"]
+        gap = max(gap, float(np.abs(p8 - svc.score(dense, r)).max()))
+    lat = np.asarray(lat)
+    serve_gap = max(float(np.abs(svc8.score(d, r) - svc.score(d, r)).max())
+                    for d, r in res["requests"])
+    log(f"int8: {len(lat)} requests of {args.batch} x {ns} ids: p50 "
+        f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms on {card}; "
+        f"row_gather {gathers / len(lat):.2f} a request; largest |int8 - f32| score "
+        f"{gap:.3e} (the serve phase's requests, whose assigned ids the checkpoint lacks: "
+        f"{serve_gap:.3e})")
+    if dev.type == "cuda" and gathers != 2 * len(lat):
+        raise AssertionError(f"int8 requests launched row_gather {gathers} times, not 2 a "
+                             f"request (codes, side plane)")
+    dense, r = reqs[3]
+    http = serving(svc8, lambda s: post_json(s, "/score", {"dense": dense.tolist(),
+                                                            "ids": r.tolist()}))
+    np.testing.assert_allclose(http["scores"], svc8.score(dense, r), atol=1e-6)
+    log("int8: POST /score matches the direct score")
+    return {"svc": svc8, "requests": reqs[3:], "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)), "score_gap": gap}
+
+
+def _planes(shard) -> list:
+    planes = [getattr(shard, f.name) for f in dataclasses.fields(shard)]
+    return [t for p in planes for t in (p if isinstance(p, tuple) else (p,))]
+
+
+def time_int8_kernels(q, requests) -> list:
+    """The int8 lookup's two gathers at a request's shape: the codes'
+    [N, dim / 4] int32 view and the [N, 4] side plane, at 8 requests'
+    positions."""
+    pos = [torch.searchsorted(q.ids, torch.from_numpy(r.reshape(-1)).to(q.ids.device))
+           .clamp_(max=len(q) - 1).to(torch.int32) for _, r in requests[:8]]
+    return [("row_gather", gather_entry("int8 codes per request", q.values.view(torch.int32),
+                                        pos)),
+            ("row_gather", gather_entry("int8 side plane per request", q.side, pos))]
+
+
+# --- retrieval -----------------------------------------------------------------------
+
+RETR_CAP, RETR_ITEMS = 1 << 23, 1 << 20  # table slots; corpus (bench_retrieval.py's)
+RETR_QUERIES, RETR_K, RETR_REQUESTS = 256, 100, 30  # bench_retrieval.py's defaults
+
+
+def check_topk(ret, svc, vecs, dense, qids, k: int, dev) -> float:
+    """The index's top-k of some queries against a brute-force f32 q @ V.T
+    over the item vectors `vecs` (embedded here): scores within 1e-4, keys
+    equal wherever the scores around a rank are more than 1e-4 apart.
+    Returns the largest score difference."""
+    keys, scores = ret.retrieve(dense, qids, k=k)
+    with torch.no_grad():
+        rows = svc.table.lookup(qids.reshape(-1), train=False)
+        qv = svc.model.embed_query(torch.from_numpy(dense).to(dev),
+                                   rows.reshape(len(qids), qids.shape[1], -1))
+        ref_s, ref_i = torch.topk(qv @ vecs.T, k, dim=1)
+    ref_s, ref_i = ref_s.cpu().numpy(), ref_i.cpu().numpy()
+    diff = float(np.abs(scores - ref_s).max())
+    if diff > 1e-4:
+        raise AssertionError(f"retrieval top-k scores {diff} from the brute-force ones")
+    gaps = np.diff(ref_s, axis=1) * -1  # ref_s[r] - ref_s[r + 1]
+    apart = np.ones_like(ref_s, dtype=bool)
+    apart[:, :-1] &= gaps > 1e-4
+    apart[:, 1:] &= gaps > 1e-4
+    if not np.array_equal(keys[apart], ret.index.keys[ref_i[apart]]):
+        raise AssertionError("retrieval top-k keys differ from the brute-force ones")
+    return diff
+
+
+def retrieval(args, dev, card: str) -> dict:
+    """The retrieval phase (module docstring)."""
+    rehearse = dev.type == "cpu"
+    cap = args.capacity if rehearse else RETR_CAP
+    bsz = args.batch if rehearse else TRAIN_BATCH
+    nsteps = 3 if rehearse else 5 + TRAIN_STEPS
+    n_items, nq, nreq = (1 << 12, 16, 3) if rehearse else (RETR_ITEMS, RETR_QUERIES,
+                                                          RETR_REQUESTS)
+    mc = zoo_model_cfg("two_tower")
+    table_cfg = TableConfig(dim=32, capacity=cap)
+    root = ROOT / "build" / "chip_smoke" / "retrieval"
+    shutil.rmtree(root, ignore_errors=True)
+    batches = list(SyntheticStream(SyntheticConfig(batch_size=bsz, seed=args.seed + 53))
+                   .batches(nsteps + 4))
+    train_b, held = batches[:nsteps], batches[nsteps:]
+    tr = Trainer(RunConfig(batch_size=bsz, steps=nsteps, seed=args.seed), table_cfg, mc,
+                 device=dev, generator=torch.Generator().manual_seed(args.seed + 55))
+    c0 = tr.counters()
+    out = {"train": run_steps("retrieval two_tower", lambda b: tr.train_step(b)["loss"],
+                              train_b, dev, card, TRAIN_STEP_LAUNCHES)}
+    check_drops("retrieval two_tower", c0, tr.counters())
+    tr.save_checkpoint(str(root / "ckpt"))
+
+    # the corpus: the held-out batches' items, then items of ids drawn from the
+    # trained ids of each item column
+    rng = np.random.default_rng(args.seed + 57)
+    held_items = np.concatenate([b["ids"][:, mc.num_query_features:] for b in held])
+    trained = np.concatenate([b["ids"] for b in train_b])
+    rest = np.stack([rng.choice(np.unique(trained[:, j]), n_items - len(held_items))
+                     for j in range(mc.num_query_features, mc.num_sparse_features)], axis=1)
+    item_ids = np.concatenate([held_items, rest])
+    query_pool = np.unique(trained[:, :mc.num_query_features])
+    requests = [(rng.standard_normal((nq, mc.num_dense_features), dtype=np.float32),
+                 rng.choice(query_pool, (nq, mc.num_query_features))) for _ in range(nreq + 2)]
+    gathers_a_lookup = {"none": 4, "int8": 2}
+    try:
+        for quantize in ("none", "int8"):
+            svc = ScoringService(str(root / "ckpt"), table_cfg, mc, quantize=quantize,
+                                 device=dev)
+            ret = RetrievalService(svc)
+            at = launches()
+            t0 = time.perf_counter()
+            ret.build_index(item_ids)
+            sync(dev)
+            build_s = time.perf_counter() - t0
+            lookups = -(-n_items // ret.embed_batch)
+            built = _launch_delta(at)["row_gather"]
+            with torch.no_grad():  # the item vectors, embedded here for the brute force
+                vecs = torch.cat([svc.model.embed_item(svc.table.lookup(
+                    item_ids[s:s + 8192].reshape(-1), train=False).reshape(
+                        -1, mc.num_sparse_features - mc.num_query_features, table_cfg.dim))
+                    for s in range(0, n_items, 8192)])
+            diff = max(check_topk(ret, svc, vecs, d[:8], q[:8], RETR_K, dev)
+                       for d, q in requests[:1])
+            for d, q in requests[:2]:  # warm-up
+                ret.retrieve(d, q, k=RETR_K)
+            lat = []
+            at = launches()
+            for d, q in requests[2:]:
+                t0 = time.perf_counter()
+                keys, scores = ret.retrieve(d, q, k=RETR_K)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            per_req = _launch_delta(at)["row_gather"] / len(lat)
+            if dev.type == "cuda":
+                run_profiled(f"retrieval {quantize}", lambda: [ret.retrieve(
+                    d, q, k=RETR_K) for d, q in requests[2:6]], 4, "request")
+            recall = ret.evaluate(held, ks=(1, 10, 100))
+            lat = np.asarray(lat)
+            log(f"retrieval {quantize}: index of {n_items} items x "
+                f"{mc.num_sparse_features - mc.num_query_features} ids built in {build_s:.2f} s "
+                f"({n_items / build_s:.0f} items/s, row_gather {built / lookups:.2f} a lookup of "
+                f"{ret.embed_batch} items); {len(lat)} requests of {nq} queries at k = "
+                f"{RETR_K}: p50 {np.percentile(lat, 50):.3f} ms, p99 "
+                f"{np.percentile(lat, 99):.3f} ms on {card} (row_gather {per_req:.2f} a "
+                f"request); top-k of 8 queries = brute-force f32 q @ V.T (largest score "
+                f"difference {diff:.3e}); evaluate on {recall['positives']} held-out "
+                f"positives: " + ", ".join(f"{k} {v:.4f}" for k, v in recall.items()
+                                            if k.startswith("recall")))
+            if dev.type == "cuda" and (built != gathers_a_lookup[quantize] * lookups
+                                       or per_req != gathers_a_lookup[quantize]):
+                raise AssertionError(f"retrieval {quantize}: row_gather {built} times over "
+                                     f"{lookups} index lookups and {per_req} a request, "
+                                     f"not {gathers_a_lookup[quantize]} a lookup")
+            out[quantize] = {"build_items_per_s": n_items / build_s,
+                             "p50_ms": float(np.percentile(lat, 50)),
+                             "p99_ms": float(np.percentile(lat, 99)), **recall}
+            if quantize == "none":
+                d, q = requests[2]
+                body = {"dense": d.tolist(), "ids": q.tolist(), "k": RETR_K}
+                got = serving(svc, lambda s: post_json(s, "/retrieve", body), retrieval=ret)
+                keys, scores = ret.retrieve(d, q, k=RETR_K)
+                if got["keys"] != keys.tolist() or not np.allclose(got["scores"], scores,
+                                                                   atol=1e-6):
+                    raise AssertionError("POST /retrieve differs from retrieve")
+                log("retrieval: POST /retrieve matches retrieve")
+            del svc, ret, vecs
+    finally:
+        shutil.rmtree(root.parent, ignore_errors=True)
+    return out
+
+
+# --- the embed API -------------------------------------------------------------------
+
+class UserModel(torch.nn.Module):
+    """A model the trainers do not know: a logistic regression over the
+    flattened [B, 26, 32] embeddings, updated by plain SGD."""
+
+    def __init__(self, width: int, generator):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.randn(width, generator=generator) * 0.05)
+        self.b = torch.nn.Parameter(torch.zeros(()))
+
+    def forward(self, emb):
+        return emb.reshape(emb.shape[0], -1) @ self.w + self.b
+
+
+def embed_step(spec, shard, model, batch, step: int, dev) -> float:
+    """embed.lookup -> the user model -> grads of emb and of the model ->
+    embed.update and SGD."""
+    ids = torch.from_numpy(batch["ids"]).to(dev)
+    label = torch.from_numpy(batch["label"]).to(dev)
+    hi, lo = hashing.split_ids_t(ids)
+    ctx, emb = embed.lookup(spec, shard, hi, lo, step)
+    logits = model(emb)
+    loss = torch.nn.functional.binary_cross_entropy_with_logits(logits, label)
+    g_emb, *g = torch.autograd.grad(loss, [emb, *model.parameters()])
+    embed.update(spec, shard, ctx, g_emb)
+    with torch.no_grad():
+        for p, gp in zip(model.parameters(), g):
+            p.sub_(0.05 * gp)
+    return float(loss.detach())
+
+
+def embed_phase(args, table, dev, card: str) -> dict:
+    """The embed phase (module docstring)."""
+    bsz = args.batch if dev.type == "cpu" else TRAIN_BATCH
+    nsteps = 3 if dev.type == "cpu" else 5 + TRAIN_STEPS
+    # (a) 3 steps on the card and on the CPU from one state
+    cfg = TableConfig(dim=32, capacity=1 << 16)
+    spec = TableSpec.from_config(cfg)
+    small = list(SyntheticStream(SyntheticConfig(batch_size=512, seed=args.seed + 61))
+                 .batches(3))
+    runs = {}
+    for d in (torch.device("cpu"), dev):
+        shard = alloc_shard(spec, d)
+        model = UserModel(26 * 32, torch.Generator().manual_seed(args.seed + 63)).to(d)
+        losses = [embed_step(spec, shard, model, b, i, d) for i, b in enumerate(small)]
+        runs[d.type] = (shard, model, losses)
+    (cshard, cmodel, closs), (gshard, gmodel, gloss) = runs["cpu"], runs[dev.type]
+    errs = planes_agree("embed parity", gshard, cshard)
+    np.testing.assert_allclose(gloss, closs, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gmodel.w.detach().cpu(), cmodel.w.detach(), rtol=0, atol=1e-5)
+    log(f"check embed parity: 3 steps of 512 x 26 ids through embed.lookup/update, {dev} vs "
+        f"CPU: planes and counters equal; max |{dev} - CPU| {errs}; losses {gloss}")
+    # (b) steps of 4096 x 26 ids on the live table
+    model = UserModel(26 * 32, torch.Generator().manual_seed(args.seed + 65)).to(dev)
+    batches = list(SyntheticStream(SyntheticConfig(batch_size=bsz, seed=args.seed + 67))
+                   .batches(nsteps))
+    c0 = table.counters()
+    step0 = 10_000  # later than every step stamp of the earlier phases
+    counter = iter(range(step0, step0 + nsteps))
+    out = run_steps("embed live", lambda b: embed_step(table.spec, table.shard, model, b,
+                                                       next(counter), dev),
+                    batches, dev, card, TRAIN_STEP_LAUNCHES)
+    check_drops("embed live", c0, table.counters(), share=0.01)
+    return out
+
+
+# --- table groups --------------------------------------------------------------------
+
+GROUP_FEATURES = ["user", "item", "item"] + ["ctx"] * 23  # config 2's 26 columns, 3 members
+GROUP_CAPS = {"user": 1 << 24, "item": 1 << 24, "ctx": 1 << 25}
+
+
+def group_cfgs(caps: dict, user=None, item=None) -> dict:
+    """user ids at dim 64 with rowwise AdaGrad, item ids (columns 1-2, one
+    shared table) at dim 32 with FTRL, the 23 context columns at dim 32 with
+    rowwise AdaGrad. `user`/`item`: extra TableConfig fields."""
+    return {
+        "user": TableConfig(dim=64, capacity=caps["user"], **(user or {}),
+                            optimizer=OptimizerConfig(kind="rowwise_adagrad")),
+        "item": TableConfig(dim=32, capacity=caps["item"], **(item or {}),
+                            optimizer=OptimizerConfig(kind="ftrl")),
+        "ctx": TableConfig(dim=32, capacity=caps["ctx"],
+                           optimizer=OptimizerConfig(kind="rowwise_adagrad")),
+    }
+
+
+def member_launches(kind: str) -> dict:
+    """One member's launches in a group step, planning rounds aside: the
+    probe's 2 round groups, the values read and the rows by the inverse (4
+    gathers), the fresh keys' set, the segment sum's walk and combine (2
+    K1); then rowwise AdaGrad's fetch-add and values add, or FTRL's fresh
+    rows' init add, one gather of z, n and values, and their 3 adds."""
+    want = {"row_scatter_set": 1, "row_scatter_add": 0, "row_merge_add": 2, "row_gather": 4}
+    if kind == "rowwise_adagrad":
+        want["row_scatter_add"] += 1
+        want["row_merge_add"] += 1
+    elif kind == "ftrl":
+        want["row_merge_add"] += 4
+        want["row_gather"] += 1
+    else:
+        raise ValueError(f"no launch count for {kind!r}")
+    return want
+
+
+def group_launches(cfgs: dict) -> dict:
+    total = {k: 0 for k in TRAIN_STEP_LAUNCHES}
+    for cfg in cfgs.values():
+        for k, v in member_launches(cfg.optimizer.kind).items():
+            total[k] += v
+    return total
+
+
+def group_phase(args, dev, card: str) -> dict:
+    """The group phase (module docstring)."""
+    rehearse = dev.type == "cpu"
+    bsz = args.batch if rehearse else TRAIN_BATCH
+    nsteps = 3 if rehearse else 5 + TRAIN_STEPS
+    mc = ModelConfig(kind="ctr_mlp")  # 13 dense, 26 sparse, top 256-128-1
+    small = {"user": 1 << 12, "item": 1 << 12, "ctx": 1 << 13}
+    caps = small if rehearse else GROUP_CAPS
+    out = {}
+
+    # (a) 3 steps on the card and on the CPU from one state
+    pcaps = {"user": 1 << 16, "item": 1 << 16, "ctx": 1 << 17}
+    pb = list(SyntheticStream(SyntheticConfig(batch_size=512, seed=args.seed + 71)).batches(3))
+    runs = {}
+    for d in (torch.device("cpu"), dev):
+        tr = GroupTrainer(RunConfig(batch_size=512, steps=3, seed=args.seed), group_cfgs(pcaps),
+                          GROUP_FEATURES, mc, device=d,
+                          generator=torch.Generator().manual_seed(args.seed + 73))
+        runs[d.type] = (tr, [tr.train_step(b)["loss"] for b in pb])
+    (ctr, closs), (gtr, gloss) = runs["cpu"], runs[dev.type]
+    errs = {n: planes_agree(f"group parity {n}", gtr.shards[n], ctr.shards[n])
+            for n in ctr.names}
+    np.testing.assert_allclose(gloss, closs, rtol=1e-5, atol=1e-6)
+    log(f"check group parity: 3 steps of 512 x 26 ids over members {ctr.names}, {dev} vs CPU: "
+        f"planes and counters equal; max |{dev} - CPU| {errs}; losses {gloss}")
+    del runs, ctr, gtr
+
+    # (b) steps of 4096 examples at config 2's widths
+    cfgs = group_cfgs(caps)
+    tr = GroupTrainer(RunConfig(batch_size=bsz, steps=nsteps, seed=args.seed), cfgs,
+                      GROUP_FEATURES, mc, device=dev,
+                      generator=torch.Generator().manual_seed(args.seed + 75))
+    gib = sum(t.numel() * t.element_size() for n in tr.names
+              for t in _planes(tr.shards[n])) / 2**30
+    want = group_launches(cfgs)
+    log(f"group: members " + ", ".join(
+        f"{n} (dim {cfgs[n].dim}, {cfgs[n].optimizer.kind}, {tr.specs[n].capacity} slots, "
+        f"columns {tr.table_features[n][0]}-{tr.table_features[n][-1]}: launches a step "
+        f"{member_launches(cfgs[n].optimizer.kind)} + rounds)" for n in tr.names)
+        + f"; state {gib:.2f} GiB on {dev}")
+    batches = list(SyntheticStream(SyntheticConfig(batch_size=bsz, seed=args.seed + 77))
+                   .batches(nsteps + 3))  # 2 to profile, 1 for the timings
+    c0 = {n: dict(c) for n, c in tr.counters().items()}
+    out["steps"] = run_steps("group", lambda b: tr.train_step(b)["loss"], batches[:-3], dev,
+                             card, want)
+    c1 = tr.counters()
+    for n in tr.names:
+        check_drops(f"group {n}", c0[n], c1[n])
+    out["lifecycle"] = group_lifecycle(args, dev, card, mc)
+    out["trainer"], out["spare"] = tr, batches[-3:]  # profiled and timed outside the phase
+    return out
+
+
+def group_lifecycle(args, dev, card: str, mc) -> dict:
+    """At reduced depth on a 2^20-slot group: LFU/TTL eviction of the user
+    member into a HostKVStore, promotion back, remove, growth of the item
+    member at grow_at_load; then a checkpoint that a GroupScoringService
+    restores and scores as the trainer's eval_step."""
+    rehearse = dev.type == "cpu"
+    bsz = args.batch if rehearse else TRAIN_BATCH
+    cap = 1 << 14 if rehearse else 1 << 20
+    policy = PolicyConfig(evict_policy="lfu_ttl", ttl_steps=4, lfu_min_freq=2,
+                          max_evict_per_pass=cap // 8, evict_scan_buckets=cap // LANES // 4)
+    item_cap = cap // 64
+    cfgs = group_cfgs({"user": cap, "item": item_cap, "ctx": cap}, user={"policy": policy},
+                      item={"grow_at_load": 0.6})
+    store = HostKVStore(SpillCodec(TableSpec.from_config(cfgs["user"])).width)
+    run_cfg = RunConfig(batch_size=bsz, steps=12, seed=args.seed)
+    tr = GroupTrainer(run_cfg, cfgs, GROUP_FEATURES, mc, spill={"user": store}, device=dev,
+                      generator=torch.Generator().manual_seed(args.seed + 79))
+    stream = SyntheticStream(SyntheticConfig(batch_size=bsz, seed=args.seed + 81,
+                                             drift_per_step=500))
+    batches = list(stream.batches(13))  # 12 steps, 1 held out for scoring
+    evicted, pass_s = 0, []
+    for i, b in enumerate(batches[:12]):
+        tr.train_step(b)
+        if i % 4 == 3:
+            t0 = time.perf_counter()
+            m = tr.maintenance()
+            sync(dev)
+            pass_s.append(time.perf_counter() - t0)
+            evicted += m["user"]["evicted"]
+            if m["item"]["evicted"] or m["ctx"]["evicted"]:
+                raise AssertionError(f"members without a policy evicted: {m}")
+    c = tr.counters()
+    # spilled ids seen again are promoted back at the next tick, and erased
+    # from the store
+    if not (evicted > 0 and evicted == c["user"]["evictions"] == c["user"]["spills"]
+            and 0 < len(store) <= evicted):
+        raise AssertionError(f"evicted {evicted}, counters {c['user']}, store {len(store)}")
+    if tr.specs["item"].capacity <= item_cap or any(c[n]["drops"] for n in c):
+        raise AssertionError(f"the item member did not grow, or a member dropped: {c}")
+    log(f"group lifecycle: 12 steps of {bsz} x 26 ids, maintenance every 4 "
+        f"({_ms(float(np.median(pass_s)))} p50): user evicted and spilled {evicted} rows "
+        f"(store {len(store)}, {c['user']['promotes']} promoted back); item grew "
+        f"{item_cap} -> {tr.specs['item'].capacity} slots with {c['item']['rows']} rows; "
+        f"drops 0")
+
+    # promotion: spilled user ids, looked up again, come back with their payload
+    n_prom = min(len(store), bsz, 1024)
+    keys = next(store.export())[0][:n_prom]
+    want, _ = store.lookup_batch(keys)
+    b = dict(batches[11])
+    b["ids"] = b["ids"].copy()
+    b["ids"][:n_prom, 0] = keys
+    tr.train_step(b)  # misses feed the user member's promoter
+    tr._promoters["user"].flush()
+    t0 = time.perf_counter()
+    m = tr.maintenance()
+    sync(dev)
+    hi, lo = hashing.split_ids(keys)
+    spec, shard = tr.specs["user"], tr.shards["user"]
+    pr = table_ops.probe(spec, shard, torch.from_numpy(hi).to(dev),
+                         torch.from_numpy(lo).to(dev), torch.ones(n_prom, dtype=torch.bool,
+                                                                  device=dev))
+    rows = shard.values[pr.slot.clamp(min=0).long()].cpu().numpy()
+    if (m["user"]["promoted"] < n_prom or not bool(pr.found.all())
+            or not np.array_equal(rows.view(np.int32), want[:, :spec.dim].view(np.int32))):
+        raise AssertionError(f"promotion: {m['user']['promoted']} promoted of {n_prom}, "
+                             f"{int(pr.found.sum())} found, rows equal "
+                             f"{np.array_equal(rows, want[:, :spec.dim])}")
+    log(f"group lifecycle: {n_prom} spilled user ids promoted back in "
+        f"{_ms(time.perf_counter() - t0)}; rows equal their spilled payload bit for bit")
+
+    # remove: half of the promoted ids and an absent one
+    gone = keys[:n_prom // 2]
+    removed = tr.remove("user", np.concatenate([gone, [-5]]))
+    if removed != len(gone) or bool(_found(spec, shard, torch.from_numpy(gone).to(dev)).any()):
+        raise AssertionError(f"remove: {removed} of {len(gone)}")
+    log(f"group lifecycle: remove of {len(gone)} user ids (+1 absent): {removed} removed, "
+        f"none found after")
+
+    # checkpoint -> GroupScoringService: its scores are the trainer's eval_step's
+    root = ROOT / "build" / "chip_smoke" / "group"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        tr.save_checkpoint(str(root))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        svc = GroupScoringService(str(root), run_cfg, cfgs, GROUP_FEATURES, mc, device=dev)
+        sync(dev)
+        load_s = time.perf_counter() - t0
+        held = batches[12]
+        got = svc.score(held["dense"], held["ids"])
+        logits = tr.eval_step(held)["logits"].cpu().numpy().astype(np.float64)
+        want_p = (1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
+        np.testing.assert_allclose(got, want_p, rtol=1e-6, atol=0)
+        http = serving(svc, lambda s: post_json(s, "/score", {
+            "dense": held["dense"][:64].tolist(), "ids": held["ids"][:64].tolist()}))
+        np.testing.assert_allclose(http["scores"], got[:64], atol=1e-6)
+        if svc.stats()["tables"] != {n: c["rows"] for n, c in tr.counters().items()}:
+            raise AssertionError(f"restored rows {svc.stats()} differ from the trainer's")
+        log(f"group lifecycle: saved in {save_s:.2f} s, restored into a GroupScoringService "
+            f"in {load_s:.2f} s ({svc.stats()['rows']} rows); its scores of {len(got)} "
+            f"examples equal the trainer's eval_step probabilities (max |diff| "
+            f"{float(np.abs(got - want_p).max())}); POST /score matches")
+    finally:
+        shutil.rmtree(root.parent, ignore_errors=True)
+    return {"evicted": evicted, "promoted": m["user"]["promoted"], "removed": removed}
+
+
+def time_group_kernels(tr, batch, seed: int) -> list:
+    """The group members' new call shapes, on the slots of one step's unique
+    ids (shifted by multiples of a bucket, 8 sets): the user member's
+    [2^24, 64] values gather and add, and the FTRL item member's gather of
+    z, n and values and its add into z."""
+    dev = tr.device
+    g = torch.Generator(device=dev).manual_seed(seed + 83)
+    tr.train_step(batch)
+    hi, lo = hashing.split_ids_t(torch.from_numpy(batch["ids"]).to(dev))
+    out = []
+    for n in ("user", "item"):
+        spec, shard = tr.specs[n], tr.shards[n]
+        cols = tr._cols[n]
+        h, l = hi.index_select(1, cols).reshape(-1), lo.index_select(1, cols).reshape(-1)
+        uniq = dedup.unique_pairs(h, l, h.shape[0])
+        pr = table_ops.probe(spec, shard, uniq.hi, uniq.lo, uniq.valid)
+        ok, C, W = pr.found, spec.capacity, spec.dim
+        T, m = int(ok.sum()), ok.shape[0]
+        shifts = [((pr.slot.long() + k * 7919 * LANES) % C) for k in range(8)]
+        vrows = [torch.where(ok, s, -1).to(torch.int32) for s in shifts]
+        vrow64 = [s[ok] for s in shifts]
+        planes = [shard.values] if n == "user" else [*shard.opt_fulldim, shard.values]
+        label = "user values" if n == "user" else "item FTRL z, n, values"
+        out.append(("row_gather", gather_entry(f"group {label} per step",
+                                               planes[0] if len(planes) == 1 else planes,
+                                               [v.clamp(min=0) for v in vrows])))
+        plane = planes[0]
+        zero = torch.zeros((m, W), device=dev)
+
+        def check(plane=plane, vr=vrows[:2], m=m, W=W):
+            got, want = plane.clone(), plane.clone()
+            for i in vr:
+                upd = torch.randn((m, W), device=dev, generator=g) * 1e-3
+                row_merge_add(got, i, upd)
+                row_merge_add_plain(want, i, upd)
+            return max_abs_err("row_merge_add", got, want)
+
+        out.append(("row_merge_add", entry(
+            f"group {'user values' if n == 'user' else 'item FTRL z'} add per step",
+            f"{tuple(plane.shape)} {plane.dtype}, m={m} ({T} valid rows)",
+            4 * m + 4 * W * T + 2 * T * W * plane.element_size(),
+            [lambda v=v, p=plane, z=zero: row_merge_add(p, v, z) for v in vrows],
+            [lambda v=v, p=plane, z=zero: row_merge_add_plain(p, v, z) for v in vrows],
+            [lambda v=v, p=plane, z=zero[:T]: p.index_add_(0, v, z) for v in vrow64],
+            check, "add_unique")))
+    return out
+
 # --- main ----------------------------------------------------------------------
 
 # --- the model zoo ---------------------------------------------------------------
@@ -2034,13 +2723,21 @@ def main() -> int:
     if rehearse:
         cpu = torch.device("cpu")
         log("rehearsal on the CPU: plain versions, no build, no timing, no result")
-        res = serve(args, cpu, rng, "the CPU (rehearsal)")
-        train(args, res["svc"].table, cpu, "the CPU (rehearsal)")
-        lifecycle_live(args, res["svc"].table, res["assigned"], cpu, "the CPU (rehearsal)")
-        lifecycle_depth(args, cpu, "the CPU (rehearsal)")
-        # a fresh table: the rehearsal's live one is full after the lifecycle
-        zoo(args, DynamicEmbeddingTable(TableConfig(dim=32, capacity=args.capacity), device=cpu),
-            cpu, "the CPU (rehearsal)")
+        card = "the CPU (rehearsal)"
+        try:
+            res = serve(args, cpu, rng, card)
+            int8(args, res, cpu, card)
+        finally:
+            shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
+        train(args, res["svc"].table, cpu, card)
+        lifecycle_live(args, res["svc"].table, res["assigned"], cpu, card)
+        lifecycle_depth(args, cpu, card)
+        # fresh tables: the rehearsal's live one is full after the lifecycle
+        for phase in (zoo, embed_phase):
+            phase(args, DynamicEmbeddingTable(TableConfig(dim=32, capacity=args.capacity),
+                                              device=cpu), cpu, card)
+        retrieval(args, cpu, card)
+        group_phase(args, cpu, card)
         log(f"rehearsal finished in {time.perf_counter() - t_start:.1f} s")
         return 1
 
@@ -2065,14 +2762,29 @@ def main() -> int:
 
     # each path runs with the launch counters set to 0 just before it
     cuda = torch.device("cuda")
-    reset_launches()
-    t0 = time.perf_counter()
-    res = serve(args, cuda, rng, card)
-    serve_counts = launches()
-    log(f"serve: path finished in {time.perf_counter() - t0:.1f} s; launches {serve_counts}")
-    for name in ("row_gather", "row_scatter_set"):
-        if serve_counts[name] <= 0:
-            raise AssertionError(f"the serving path never launched {name}")
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = serve(args, cuda, rng, card)
+        serve_counts = launches()
+        log(f"serve: path finished in {time.perf_counter() - t0:.1f} s; launches "
+            f"{serve_counts}")
+        for name in ("row_gather", "row_scatter_set"):
+            if serve_counts[name] <= 0:
+                raise AssertionError(f"the serving path never launched {name}")
+
+        # int8 serving on the serve phase's checkpoint: gathers only
+        reset_launches()
+        t0 = time.perf_counter()
+        q8 = int8(args, res, cuda, card)
+        int8_counts = launches()
+        log(f"int8: path finished in {time.perf_counter() - t0:.1f} s; launches {int8_counts}")
+        if int8_counts["row_gather"] <= 0 or any(int8_counts[k] for k in int8_counts
+                                                 if k != "row_gather"):
+            raise AssertionError(f"int8 serving must launch row_gather and nothing else: "
+                                 f"{int8_counts}")
+    finally:
+        shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
 
     reset_launches()
     t0 = time.perf_counter()
@@ -2106,6 +2818,10 @@ def main() -> int:
 
     profile_train(tres["trainer"], tres["spare"][:4])
     timings = time_kernels(res["svc"], res["requests"], args.seed)
+    timings += time_int8_kernels(q8["svc"].table, q8["requests"])
+    run_profiled("int8 score", lambda: [q8["svc"].score(d, r) for d, r in q8["requests"][:8]],
+                 8, "request")
+    del q8
     timings += time_train_kernels(tres["trainer"], tres["spare"][4], args.seed)
     profile_phase(res["svc"], res["requests"], args.seed)
 
@@ -2135,6 +2851,26 @@ def main() -> int:
     for name, count in zoo_counts.items():
         if count <= 0:
             raise AssertionError(f"the zoo path never launched {name}")
+
+    # the embed API, retrieval and table groups, each with the counters set
+    # to 0 just before it
+    phase_counts = {}
+    for name, phase in (("embed", lambda: embed_phase(args, res["svc"].table, cuda, card)),
+                        ("retrieval", lambda: retrieval(args, cuda, card)),
+                        ("group", lambda: group_phase(args, cuda, card))):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = phase()
+        phase_counts[name] = launches()
+        log(f"{name}: path finished in {time.perf_counter() - t0:.1f} s; launches "
+            f"{phase_counts[name]} on {card}")
+        for kname, count in phase_counts[name].items():
+            if count <= 0:
+                raise AssertionError(f"the {name} path never launched {kname}")
+    run_profiled("group", lambda: [out["trainer"].train_step(b) for b in out["spare"][:2]], 2,
+                 "step")
+    timings += time_group_kernels(out["trainer"], out["spare"][2], args.seed)
+    del out
     meta = {
         "row_gather": ("meepoembedding_tpu_torch/csrc/row_gather.cu",
                        "meepoembedding_tpu/table/pallas_ops.py:58"),
@@ -2156,6 +2892,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": train_counts[name], "launches_serve": serve_counts[name],
             "launches_lifecycle": life_counts[name], "launches_zoo": zoo_counts[name],
+            "launches_int8": int8_counts[name],
+            **{f"launches_{p}": c[name] for p, c in phase_counts.items()},
             "max_abs_err": max(t["max_abs_err"] for t in mine), "ms": e["ms"],
             "device_ms": e["device_ms"], "kernel_ms": e["kernel_ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": "bytes",

@@ -1,11 +1,14 @@
 """PyTorch + CUDA port of the dynamic embedding engine (serving, training,
-the table lifecycle, the Criteo input path and the model zoo).
+the table lifecycle, the Criteo input path, the model zoo, the embed API
+and table groups).
 
 `meepoembedding_tpu/` (JAX, TPU) is the reference; this package reproduces
 its serving path (checkpoint restore into a hash table, probe-only lookups,
-scoring), its training path (insert-on-miss lookups, the sparse
-optimizers, every model kind of its zoo), its table lifecycle and its
-Criteo input path for an NVIDIA H100. Plain tensor code is
+scoring, int8 tables, two-tower retrieval), its training path
+(insert-on-miss lookups, the sparse optimizers, every model kind of its
+zoo, the differentiable `embed` pair), its table lifecycle, its groups of
+heterogeneous tables on one device and its Criteo input path for an NVIDIA
+H100. Plain tensor code is
 PyTorch; the four row kernels the paths run are hand-written CUDA
 (`csrc/`), built with `nvcc` at first use. CPU tensors take each kernel's
 plain PyTorch version, which is how the tests run on machines without a

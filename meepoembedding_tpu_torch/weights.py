@@ -2,17 +2,19 @@
 modules.
 
 The JAX package keeps a model's params as a pytree (dicts, lists, tuples;
-DLRM: {"bottom": [(W, b), ...], "top": [(W, b), ...]}) with MLP weights
-stored [in, out]; its checkpoints store the tree's leaves in
+DLRM and the group trainers' dot head: {"bottom": [(W, b), ...], "top":
+[(W, b), ...]}; the group trainers' wide head: {"mlp": [...]}) with MLP
+weights stored [in, out]; its checkpoints store the tree's leaves in
 `jax.tree_util` flatten order (dict keys sorted, lists in order, 0-d
-leaves such as DeepFM's `b` included). Every model of the port gives its
-parameters in that nesting (`jax_tree()`), so `param_leaves` lists them in
-the same order. `from_jax_params` takes the tree or its flat leaves as
-numpy arrays and copies them into the module, transposing the `nn.Linear`
-weights into [out, in] (every other weight is kept in the reference's
-layout); `to_jax_params` is its inverse. The dense Adam state is the
-pytree (m, v, t): the moments shaped like the params, in f32, and the step
-as an int32 scalar; `to_jax_adam_state` gives its leaves from the port's
+leaves such as DeepFM's `b` included). Every model of the port, and the
+group heads of `group_train.py`, gives its parameters in that nesting
+(`jax_tree()`), so `param_leaves` lists them in the same order.
+`from_jax_params` takes the tree or its flat leaves as numpy arrays and
+copies them into the module, transposing the `nn.Linear` weights into
+[out, in] (every other weight is kept in the reference's layout);
+`to_jax_params` is its inverse. The dense Adam state is the pytree
+(m, v, t): the moments shaped like the params, in f32, and the step as an
+int32 scalar; `to_jax_adam_state` gives its leaves from the port's
 (m, v, t).
 """
 

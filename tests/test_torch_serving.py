@@ -133,9 +133,18 @@ def test_http_round_trip(ckpt):
 
 
 def test_unported_paths_raise(ckpt):
+    """What is still unported, or refused, raises: the row-sharded group
+    service (the distributed layer), a quantizer other than int8, an
+    unknown model kind."""
+    from meepoembedding_tpu_torch.config import RunConfig
+    from meepoembedding_tpu_torch.serving_group import GroupScoringService
+
     path, _ = ckpt
-    with pytest.raises(NotImplementedError):
-        ScoringService(path, TableConfig(**TABLE), ModelConfig(**MODEL), quantize="int8",
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        GroupScoringService(path, RunConfig(), {"t": TableConfig(**TABLE)}, ["t"] * 3,
+                            ModelConfig(**MODEL), distributed=True, device="cpu")
+    with pytest.raises(ValueError, match=r"none\|int8"):
+        ScoringService(path, TableConfig(**TABLE), ModelConfig(**MODEL), quantize="int4",
                        device="cpu")
     with pytest.raises(ValueError, match="unknown model kind"):
         build_model(ModelConfig(**{**MODEL, "kind": "wide_and_deep"}))
@@ -143,9 +152,10 @@ def test_unported_paths_raise(ckpt):
 
 def test_chip_smoke_rehearses_on_cpu():
     """The card script's serve phase (checkpoint, restore, fill, requests,
-    row and score checks, HTTP), train phase and lifecycle phase (eviction
-    into a spill tier, remove, promotion, checkpoints, growth) at a tiny
-    size with the plain versions. It must exit non-zero and print no result
+    row and score checks, HTTP), int8, train and lifecycle phases (eviction
+    into a spill tier, remove, promotion, checkpoints, growth), and the zoo,
+    embed, retrieval and group phases at a tiny size with the plain
+    versions. It must exit non-zero and print no result
     line: a CPU run is no chip run."""
     out = subprocess.run(
         [sys.executable, "chip_smoke.py", "--rehearse-on-cpu", "--capacity", str(1 << 14),
@@ -160,6 +170,10 @@ def test_chip_smoke_rehearses_on_cpu():
     assert "rows equal their spilled payload bit for bit" in out.stdout
     assert "every earlier row's planes kept bit for bit" in out.stdout
     assert "zoo din: a checkpoint restored into a ScoringService" in out.stdout
+    assert "int8: POST /score matches the direct score" in out.stdout
+    assert "check embed parity: 3 steps" in out.stdout and "embed live: inserts" in out.stdout
+    assert "retrieval: POST /retrieve matches retrieve" in out.stdout
+    assert "equal the trainer's eval_step probabilities" in out.stdout
     assert "rehearsal finished" in out.stdout
     assert '"ok": true' not in out.stdout
     assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke"))
