@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch + CUDA port's serving (f32 and int8), training,
-table-lifecycle, model-zoo, embed-API, retrieval and table-group paths on
-one card and check them.
+"""Run the PyTorch + CUDA port's serving (f32 and int8), row-sharded,
+training, table-lifecycle, model-zoo, embed-API, retrieval and table-group
+paths on one card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -54,6 +54,50 @@ Phases (any failure exits non-zero and prints no result line):
            whose assigned ids the checkpoint lacks), one POST /score equal
            to the direct score; nbytes against the f32 state. Fails unless
            a request launches 2 row_gather and the phase nothing else.
+  sharded  the row-sharded layer, with the counters set to 0 just before it,
+           on a world of one (a process group of backend "cpu:gloo,cuda:nccl":
+           NCCL for the card's tensors) with FORCE_EXCHANGE on, so the full
+           route -> all-to-all -> owner re-dedup -> lookup -> way back path
+           runs over NCCL. (a) A ShardedTrainer takes 3 steps of 512 x 26 ids
+           on a 2^16-slot table on the card and on the CPU from one state
+           (the tower held still, as the zoo's two-tower parity holds it),
+           for the dense and the ragged exchange: integer planes and
+           counters (route drops too) equal, values, accumulators and loss
+           within rtol 1e-5 / atol 1e-6, dense params within atol 1e-4. (b)
+           Config 2's width (dim 32, f32, rowwise AdaGrad, the default DLRM,
+           4096 x 26 ids a step from SyntheticStream) on a fresh 2^26-slot
+           table (9.3 GiB) for each of three exchanges: the fast path
+           (FORCE_EXCHANGE off: the single-device step), the dense exchange
+           and the ragged one, 5 warm-up + 30 timed steps each (the part to
+           cut first if the script outgrows its time), then 4 profiled
+           steps. Step p50/p99, examples/s, ids/s, drops and route drops (0
+           at a world of one), first and last loss; the forced exchanges'
+           p50 over the fast path's is the card's exchange tax at S = 1.
+           Fails on a non-finite loss, a drop, or other launches a step than
+           these, derived from the train phase's (1 set, 1 row_scatter_add,
+           3 K1, 4 row_gather + 1 a planning round): the fast path launches
+           the train phase's; the dense exchange adds the owner side's
+           gather of its rows by its dedup inverse, the source side's gather
+           of the rows that come back, and the 2 K1 of the owner's segment
+           sum of the received gradients: 1 set, 1 row_scatter_add, 5 K1, 6
+           row_gather + 1 a round; the ragged exchange places the returning
+           rows by a scatter (no kernel): 5 row_gather + 1 a round, the rest
+           as the dense. (c) A ShardedScoringService restores the serve
+           checkpoint (8,388,608 rows) into a 2^24-slot shard; 32 requests of
+           4096 x 26 of its ids (10% unknown) are timed, each failing unless
+           it launches 5 row_gather (a single-device request's 4 plus the
+           returning rows' gather) and nothing else, and unless its scores
+           equal an f32 ScoringService's on the same checkpoint within rtol
+           1e-6; one POST /score equals the direct score. (d) At reduced
+           depth (2^20 slots): 12 steps with LFU/TTL eviction into a
+           HostKVStore every 4 (evicted == spilled), promotion of spilled ids
+           back through maintenance() (rows equal their payload bit for
+           bit), `remove` through exchange_erase, growth of a grow_at_load
+           table (every earlier row kept; those the growing step did not
+           touch bit for bit), and save_checkpoint over the multi-process
+           protocol, restored into a ShardedTrainer and into a Trainer with
+           every row and dense leaf equal. The process group is destroyed at
+           the end of the phase.
   train    the training path, with the counters set to 0 just before it: a
            Trainer with the default DLRM (tower from --seed) on the same
            table (2^27 slots, ~100M rows, dim 32, f32, rowwise AdaGrad)
@@ -169,6 +213,7 @@ Phases (any failure exits non-zero and prints no result line):
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. `--rehearse-on-cpu` runs every
 phase but the kernel checks and timings on the CPU at the sizes given (the
+sharded phase on a gloo world of one, its tables at --capacity slots; the
 lifecycle's reduced-depth table at 2^14 slots; the zoo and embed phases on
 a fresh table of --capacity slots, bags of 4, 1 + 2 steps; a 2^12-item
 index; 2^12- to 2^14-slot group members) with the plain versions and
@@ -232,14 +277,19 @@ from meepoembedding_tpu_torch.kernels import (
     segment_sum,
 )
 from meepoembedding_tpu_torch.ops import dedup
+from meepoembedding_tpu_torch.parallel import mesh as pmesh
+from meepoembedding_tpu_torch.parallel import sharded_table as st
+from meepoembedding_tpu_torch.parallel.mesh import make_mesh
+from meepoembedding_tpu_torch.parallel.trainer import ShardedTrainer
 from meepoembedding_tpu_torch.retrieval import RetrievalService
+from meepoembedding_tpu_torch.serving_sharded import ShardedScoringService
 from meepoembedding_tpu_torch.serving_group import GroupScoringService
 from meepoembedding_tpu_torch.table import hashing, table_ops
 from meepoembedding_tpu_torch.table.layout import TableSpec, alloc_shard
 from meepoembedding_tpu_torch.table.runtime import DynamicEmbeddingTable
 from meepoembedding_tpu_torch.tiering import SpillCodec
 from meepoembedding_tpu_torch.train import Trainer
-from meepoembedding_tpu_torch.weights import to_jax_params
+from meepoembedding_tpu_torch.weights import to_jax_adam_state, to_jax_params
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -2243,6 +2293,278 @@ def embed_phase(args, table, dev, card: str) -> dict:
     return out
 
 
+# --- the row-sharded layer (a world of one) -------------------------------------------
+
+SHARDED_CAP = 1 << 26  # part b's fresh table: 148 bytes a slot, 9.3 GiB
+SHARDED_STEPS = 30  # part b's timed steps a exchange, after 5 warm-up
+SHARDED_SERVE_CAP = 1 << 24  # part c's services: the serve checkpoint's rows at load 0.5
+SHARDED_LIFE_CAP = 1 << 20  # part d's table
+# a step's launches at S = 1 (module docstring): the train phase's, plus the
+# owner side's rows by its dedup inverse (a gather), the segment sum of the
+# received gradients (2 K1) and, dense only, the gather of the returning rows
+SHARDED_LAUNCHES = {
+    "fast": TRAIN_STEP_LAUNCHES,
+    "dense": {"row_scatter_set": 1, "row_scatter_add": 1, "row_merge_add": 5, "row_gather": 6},
+    "ragged": {"row_scatter_set": 1, "row_scatter_add": 1, "row_merge_add": 5, "row_gather": 5},
+}
+SHARDED_REQUEST_GATHERS = 5  # the probe's 2, the values, the returning rows, the inverse
+
+
+def check_sharded_parity(seed: int, meshes: dict, dev) -> dict:
+    """Part a: 3 ShardedTrainer steps of 512 x 26 ids on a 2^16-slot table
+    on the card and on the CPU from one state, for the dense and the ragged
+    exchange (FORCE_EXCHANGE on). The tower is held still (dense lr 0), as
+    `check_zoo_parity` holds the two-tower's: Adam turns dense gradients
+    within rounding of zero into steps of ~lr whose sign is rounding, which
+    then move the embedding gradients of later steps; with a learning
+    tower, the fast path (no exchange) drifted 7.3e-6 card vs CPU in 3
+    steps of these batches (PERF.md, PR 8)."""
+    cfg = TableConfig(dim=32, capacity=1 << 16)
+    batches = list(SyntheticStream(SyntheticConfig(batch_size=512, seed=seed + 91)).batches(3))
+    errs = {}
+    for ragged in (False, True):
+        run_cfg = RunConfig(batch_size=512, steps=3, seed=seed, pipeline_depth=0,
+                            a2a_ragged=ragged, dense_learning_rate=0.0)
+        trs = {k: ShardedTrainer(run_cfg, cfg, ModelConfig(), mesh=m,
+                                 generator=torch.Generator().manual_seed(seed + 92))
+               for k, m in meshes.items()}
+        losses = {k: [tr.train_step(b)["loss"] for b in batches] for k, tr in trs.items()}
+        card, cpu = trs["card"], trs["cpu"]
+        name = "ragged" if ragged else "dense"
+        errs[name] = planes_agree(f"sharded parity {name}", card.shard, cpu.shard)
+        if card.counters() != cpu.counters():
+            raise AssertionError(f"sharded parity {name}: counters {card.counters()} != "
+                                 f"{cpu.counters()}")
+        np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-5, atol=1e-6)
+        for a, b in zip(card.params, cpu.params):
+            torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0.0, atol=1e-4)
+        log(f"check sharded parity ({name} exchange, FORCE_EXCHANGE): 3 steps of 512 x 26 ids, "
+            f"{dev} vs CPU: planes and counters equal (route drops "
+            f"{card.counters()['route_drops']}); max |{dev} - CPU| {errs[name]}; losses "
+            f"{losses['card']}")
+    return errs
+
+
+def sharded_steps(args, mesh, dev, card: str) -> dict:
+    """Part b: 5 + SHARDED_STEPS steps of each exchange on a fresh table
+    each, then 4 profiled steps. Returns the timings by exchange."""
+    rehearse = dev.type == "cpu"
+    bsz = args.batch if rehearse else TRAIN_BATCH
+    nsteps = 3 if rehearse else 5 + SHARDED_STEPS
+    cfg = TableConfig(dim=32, capacity=args.capacity if rehearse else SHARDED_CAP)
+    batches = list(SyntheticStream(SyntheticConfig(batch_size=bsz, seed=args.seed + 93))
+                   .batches(nsteps + 4))
+    out = {}
+    for name, force, ragged in (("fast", False, False), ("dense", True, False),
+                                ("ragged", True, True)):
+        st.FORCE_EXCHANGE = force
+        tr = ShardedTrainer(RunConfig(batch_size=bsz, steps=nsteps, seed=args.seed,
+                                      pipeline_depth=0, a2a_ragged=ragged), cfg, ModelConfig(),
+                            mesh=mesh, generator=torch.Generator().manual_seed(args.seed + 95))
+        c0 = tr.counters()
+        out[name] = run_steps(f"sharded {name}", lambda b: tr.train_step(b)["loss"],
+                              batches[:nsteps], dev, card, SHARDED_LAUNCHES[name])
+        c1 = tr.counters()
+        check_drops(f"sharded {name}", c0, c1)
+        if c1["route_drops"]:
+            raise AssertionError(f"sharded {name}: {c1['route_drops']} route drops at S = 1")
+        log(f"sharded {name}: route drops 0; {tr.spec.capacity}-slot table, {len(tr)} rows")
+        if not rehearse:
+            run_profiled(f"sharded {name}", lambda: [tr.train_step(b) for b in batches[nsteps:]],
+                         4, "step")
+        del tr
+    st.FORCE_EXCHANGE = True
+    fast = out["fast"]["p50_ms"]
+    log(f"sharded: the exchange's tax at S = 1, step p50 over the fast path's {fast:.3f} ms: "
+        f"dense +{out['dense']['p50_ms'] - fast:.3f} ms, ragged "
+        f"+{out['ragged']['p50_ms'] - fast:.3f} ms on {card}")
+    return out
+
+
+def sharded_serving(args, res, mesh, dev, card: str) -> dict:
+    """Part c: a ShardedScoringService on the serve phase's checkpoint,
+    against an f32 ScoringService on it."""
+    rehearse = dev.type == "cpu"
+    cfg = TableConfig(dim=32, capacity=args.capacity if rehearse else SHARDED_SERVE_CAP)
+    mc = ModelConfig()
+    ckpt = str(res["ckpt"])
+    sync(dev)
+    t0 = time.perf_counter()
+    svc = ShardedScoringService(ckpt, cfg, mc, mesh=mesh)
+    sync(dev)
+    restore_s = time.perf_counter() - t0
+    if len(svc) != args.ckpt_rows:
+        raise AssertionError(f"the sharded service restored {len(svc)} rows of {args.ckpt_rows}")
+    ref = ScoringService(ckpt, cfg, mc, device=dev)
+    rng = np.random.default_rng(args.seed + 97)
+    nd, ns = mc.num_dense_features, mc.num_sparse_features
+    reqs = [(rng.standard_normal((args.batch, nd), dtype=np.float32),
+             make_request(rng, [res["written"]["ids"]], args.batch, ns))
+            for _ in range(args.requests + 3)]
+    for dense, ids in reqs[:3]:  # warm-up
+        svc.score(dense, ids)
+    lat, gap = [], 0.0
+    for dense, ids in reqs[3:]:
+        at = launches()
+        t0 = time.perf_counter()
+        p = svc.score(dense, ids)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        got = _launch_delta(at)
+        if dev.type == "cuda" and got != {**{k: 0 for k in got},
+                                          "row_gather": SHARDED_REQUEST_GATHERS}:
+            raise AssertionError(f"a sharded request launched {got}, not "
+                                 f"{SHARDED_REQUEST_GATHERS} row_gather and nothing else")
+        want = ref.score(dense, ids)
+        np.testing.assert_allclose(p, want, rtol=1e-6, atol=0)
+        gap = max(gap, float(np.abs(p - want).max()))
+    lat = np.asarray(lat)
+    log(f"sharded serve: restored {len(svc)} rows into a {cfg.capacity}-slot shard in "
+        f"{_ms(restore_s)}; {len(lat)} requests of {args.batch} x {ns} ids (10% unknown): p50 "
+        f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms, "
+        f"{args.batch * ns * len(lat) / (lat.sum() / 1e3):.0f} ids/s on {card}; "
+        f"{SHARDED_REQUEST_GATHERS} row_gather a request; scores equal the f32 ScoringService's "
+        f"within rtol 1e-6 (max |diff| {gap}); route drops {svc.route_drops}")
+    dense, ids = reqs[3]
+    body = {"dense": dense.tolist(), "ids": ids.tolist()}
+    http = serving(svc, lambda s: post_json(s, "/score", body))["scores"]
+    np.testing.assert_allclose(http, svc.score(dense, ids), atol=1e-6)
+    log("sharded serve: POST /score matches the direct score")
+    return {"p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99))}
+
+
+def sharded_lifecycle(args, mesh, dev, card: str) -> None:
+    """Part d, at reduced depth: eviction into a HostKVStore with promotion
+    back, remove, growth, and a checkpoint over the multi-process protocol
+    restored into a ShardedTrainer and into a Trainer."""
+    rehearse = dev.type == "cpu"
+    bsz = args.batch if rehearse else TRAIN_BATCH
+    cap = 1 << 14 if rehearse else SHARDED_LIFE_CAP
+    policy = PolicyConfig(evict_policy="lfu_ttl", ttl_steps=4, lfu_min_freq=2,
+                          max_evict_per_pass=cap // 8, evict_scan_buckets=cap // LANES // 4)
+    cfg = TableConfig(dim=32, capacity=cap, policy=policy)
+    store = HostKVStore(SpillCodec(TableSpec.from_config(cfg)).width)
+    run_cfg = RunConfig(batch_size=bsz, steps=12, seed=args.seed, pipeline_depth=0)
+    tr = ShardedTrainer(run_cfg, cfg, ModelConfig(), mesh=mesh, spill=store,
+                        generator=torch.Generator().manual_seed(args.seed + 99))
+    batches = list(SyntheticStream(SyntheticConfig(batch_size=bsz, seed=args.seed + 101,
+                                                   drift_per_step=500)).batches(12))
+    evicted = 0
+    for i, b in enumerate(batches):
+        tr.train_step(b)
+        if i % 4 == 3:
+            evicted += tr.maintenance()["evicted"]
+    c = tr.counters()
+    if not (evicted > 0 and evicted == c["evictions"] == c["spills"]
+            and 0 < len(store) <= evicted):
+        raise AssertionError(f"sharded evicted {evicted}, counters {c}, store {len(store)}")
+
+    # promotion: spilled ids, looked up again, come back with their payload
+    n_prom = min(len(store), bsz, 1024)
+    keys = next(store.export())[0][:n_prom]
+    want, _ = store.lookup_batch(keys)
+    b = dict(batches[-1])
+    b["ids"] = b["ids"].copy()
+    b["ids"][:n_prom, 0] = keys
+    tr.train_step(b)  # the misses on their owner feed its promoter
+    tr.flush()
+    tr._promoter.flush()
+    m = tr.maintenance()
+    rows = tr.shard.values[_slots(tr, keys)].cpu().numpy()
+    if m["promoted"] < n_prom or not np.array_equal(rows.view(np.int32),
+                                                    want[:, :32].view(np.int32)):
+        raise AssertionError(f"sharded promotion: {m['promoted']} promoted of {n_prom}")
+    gone = keys[:n_prom // 2]
+    removed = tr.remove(np.concatenate([gone, [-5]]))
+    if removed != len(gone) or bool(_found(tr.spec, tr.shard,
+                                           torch.from_numpy(gone).to(dev)).any()):
+        raise AssertionError(f"sharded remove: {removed} of {len(gone)}")
+    log(f"sharded lifecycle: 12 steps of {bsz} x 26 ids, maintenance every 4: evicted and "
+        f"spilled {evicted} rows; {n_prom} spilled ids promoted back with their payload bit for "
+        f"bit; remove (exchange_erase) of {len(gone)} ids (+1 absent): {removed} removed")
+
+    # growth at grow_at_load keeps every earlier row
+    gcfg = TableConfig(dim=32, capacity=cap // 4, grow_at_load=0.6)
+    gt = ShardedTrainer(run_cfg, gcfg, ModelConfig(), mesh=mesh,
+                        generator=torch.Generator().manual_seed(args.seed + 103))
+    for i, b in enumerate(batches):
+        before = export_shard_arrays(gt.spec, gt.shard)
+        cap0 = gt.spec.capacity
+        gt.train_step(b)
+        if gt.spec.capacity > cap0:
+            break
+    else:
+        raise AssertionError(f"the grow_at_load table never grew from {gcfg.capacity} slots")
+    after = export_shard_arrays(gt.spec, gt.shard)
+    untouched = ~np.isin(before["ids"], b["ids"].reshape(-1))
+    keep = np.isin(after["ids"], before["ids"][untouched])
+    if not np.isin(before["ids"], after["ids"]).all() or int(keep.sum()) != int(untouched.sum()):
+        raise AssertionError("sharded growth lost rows")
+    _same_rows({k: v[keep] for k, v in after.items()},
+               {k: v[untouched] for k, v in before.items()}, "sharded growth")
+    log(f"sharded lifecycle: growth at step {i}: {cap0} -> {gt.spec.capacity} slots with "
+        f"{before['ids'].shape[0]} earlier rows kept ({int(untouched.sum())} the step did not "
+        f"touch bit for bit)")
+    del gt
+
+    # checkpoint over the multi-process protocol -> ShardedTrainer and Trainer
+    root = ROOT / "build" / "chip_smoke" / "sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        m = tr.save_checkpoint(str(root))
+        save_s = time.perf_counter() - t0
+        want = export_shard_arrays(tr.spec, tr.shard)
+        dense = [*to_jax_params(tr.model)]
+        plain_cfg = TableConfig(dim=32, capacity=cap)
+        for name, back in (("ShardedTrainer", ShardedTrainer(run_cfg, cfg, ModelConfig(),
+                                                             mesh=mesh)),
+                           ("Trainer", Trainer(run_cfg, plain_cfg, ModelConfig(), device=dev))):
+            got_m = back.load_checkpoint(str(root))
+            if got_m["step"] != tr.step:
+                raise AssertionError(f"{name} restored step {got_m['step']}, saved {tr.step}")
+            _same_rows(export_shard_arrays(back.spec, back.shard), want, f"sharded -> {name}")
+            for x, y in zip(to_jax_params(back.model), dense, strict=True):
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"sharded -> {name}: a dense leaf differs")
+            for x, y in zip(to_jax_adam_state(back.opt_state, back.model),
+                            to_jax_adam_state(tr.opt_state, tr.model), strict=True):
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"sharded -> {name}: an Adam leaf differs")
+            del back
+        log(f"sharded lifecycle: save_checkpoint of {sum(m['counts'])} rows over the "
+            f"multi-process protocol in {_ms(save_s)}; restored into a ShardedTrainer and a "
+            f"Trainer with every row and dense leaf equal, bit for bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _slots(tr, keys) -> torch.Tensor:
+    """The slots of ids that must be in a trainer's shard."""
+    hi, lo = hashing.split_ids_t(torch.from_numpy(np.asarray(keys, np.int64)).to(tr.device))
+    pr = table_ops.probe(tr.spec, tr.shard, hi, lo, hashing.is_valid(hi, lo))
+    if not bool(pr.found.all()):
+        raise AssertionError(f"{int((~pr.found).sum())} ids are not in the shard")
+    return pr.slot.long()
+
+
+def sharded_phase(args, res, dev, card: str) -> dict:
+    """The sharded phase (module docstring), on a world of one with
+    FORCE_EXCHANGE on; the process group is destroyed at its end."""
+    mesh = make_mesh(device=dev)
+    meshes = {"cpu": make_mesh(device="cpu"), "card": mesh}
+    out = {}
+    try:
+        st.FORCE_EXCHANGE = True
+        out["parity"] = check_sharded_parity(args.seed, meshes, dev)
+        out["steps"] = sharded_steps(args, mesh, dev, card)
+        out["serve"] = sharded_serving(args, res, mesh, dev, card)
+        sharded_lifecycle(args, mesh, dev, card)
+    finally:
+        st.FORCE_EXCHANGE = False
+        pmesh.destroy()
+    return out
+
+
 # --- table groups --------------------------------------------------------------------
 
 GROUP_FEATURES = ["user", "item", "item"] + ["ctx"] * 23  # config 2's 26 columns, 3 members
@@ -2727,6 +3049,7 @@ def main() -> int:
         try:
             res = serve(args, cpu, rng, card)
             int8(args, res, cpu, card)
+            sharded_phase(args, res, cpu, card)
         finally:
             shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
         train(args, res["svc"].table, cpu, card)
@@ -2783,6 +3106,17 @@ def main() -> int:
                                                  if k != "row_gather"):
             raise AssertionError(f"int8 serving must launch row_gather and nothing else: "
                                  f"{int8_counts}")
+
+        # the row-sharded layer on a world of one, on the serve checkpoint too
+        reset_launches()
+        t0 = time.perf_counter()
+        sharded_phase(args, res, cuda, card)
+        sharded_counts = launches()
+        log(f"sharded: path finished in {time.perf_counter() - t0:.1f} s; launches "
+            f"{sharded_counts} on {card}")
+        for name, count in sharded_counts.items():
+            if count <= 0:
+                raise AssertionError(f"the sharded path never launched {name}")
     finally:
         shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
 
@@ -2892,7 +3226,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": train_counts[name], "launches_serve": serve_counts[name],
             "launches_lifecycle": life_counts[name], "launches_zoo": zoo_counts[name],
-            "launches_int8": int8_counts[name],
+            "launches_int8": int8_counts[name], "launches_sharded": sharded_counts[name],
             **{f"launches_{p}": c[name] for p, c in phase_counts.items()},
             "max_abs_err": max(t["max_abs_err"] for t in mine), "ms": e["ms"],
             "device_ms": e["device_ms"], "kernel_ms": e["kernel_ms"],

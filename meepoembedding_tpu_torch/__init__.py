@@ -1,13 +1,14 @@
 """PyTorch + CUDA port of the dynamic embedding engine (serving, training,
-the table lifecycle, the Criteo input path, the model zoo, the embed API
-and table groups).
+the table lifecycle, the Criteo input path, the model zoo, the embed API,
+table groups and the row-sharded layer).
 
 `meepoembedding_tpu/` (JAX, TPU) is the reference; this package reproduces
 its serving path (checkpoint restore into a hash table, probe-only lookups,
 scoring, int8 tables, two-tower retrieval), its training path
 (insert-on-miss lookups, the sparse optimizers, every model kind of its
 zoo, the differentiable `embed` pair), its table lifecycle, its groups of
-heterogeneous tables on one device and its Criteo input path for an NVIDIA
+heterogeneous tables on one device, its Criteo input path and its
+row-sharded training and serving over `torch.distributed` for an NVIDIA
 H100. Plain tensor code is
 PyTorch; the four row kernels the paths run are hand-written CUDA
 (`csrc/`), built with `nvcc` at first use. CPU tensors take each kernel's
@@ -22,6 +23,9 @@ visible:
   >>> svc.score(dense, ids)   # [B, 13] f32, [B, 26] int64 -> [B] probabilities
   >>> tr = Trainer(RunConfig(), TableConfig(dim=32), ModelConfig())
   >>> tr.train_step({"dense": dense, "ids": ids, "label": label})   # {"loss": ...}
+  >>> init_distributed("gloo", "file:///tmp/store", rank, 4, device="cpu")
+  >>> st = ShardedTrainer(RunConfig(), TableConfig(dim=32), ModelConfig(), device="cpu")
+  >>> st.train_step(rank_rows)   # each rank passes its own rows of the batch
 """
 
 from meepoembedding_tpu_torch.config import (  # noqa: F401
@@ -31,6 +35,9 @@ from meepoembedding_tpu_torch.config import (  # noqa: F401
     RunConfig,
     TableConfig,
 )
+from meepoembedding_tpu_torch.parallel.mesh import init_distributed, make_mesh  # noqa: F401
+from meepoembedding_tpu_torch.parallel.trainer import ShardedTrainer  # noqa: F401
 from meepoembedding_tpu_torch.serving import ScoringService, make_http_server  # noqa: F401
+from meepoembedding_tpu_torch.serving_sharded import ShardedScoringService  # noqa: F401
 from meepoembedding_tpu_torch.table.runtime import DynamicEmbeddingTable  # noqa: F401
 from meepoembedding_tpu_torch.train import Trainer  # noqa: F401

@@ -1,7 +1,7 @@
 """Checkpoints in the reference's format (port of
-`meepoembedding_tpu/checkpoint.py`: the writer, :54-523, and the reader,
-:607-797; `save_sharded2d` and the multi-process barriers belong to the
-`parallel/` slice).
+`meepoembedding_tpu/checkpoint.py`: the writer, :54-523, with the
+multi-process protocol, and the reader, :607-797; `save_sharded2d` and
+`restore_shards(lane_slice=)` wait for the column-sharded layout).
 
 The on-disk format is the reference's, so a checkpoint written by either
 package restores into the other with bit-exact rows:
@@ -318,13 +318,18 @@ class AsyncCheckpointer:
 
 
 def save_sharded(path: str, spec: TableSpec, shards_by_id: dict, num_shards: int, step: int,
-                 extras: Optional[dict] = None, dense: Optional[dict] = None) -> dict:
-    """The reference's checkpoint protocol in one process, which is its
-    coordinator: each shard's files (streamed parts, or the single-file
-    layout for a shard given as exported arrays), its counters sidecar, the
-    dense leaves ({name: leaves in flatten order}), then the manifest, the
-    commit point, and the pruning of stale generations. Returns the
-    manifest."""
+                 extras: Optional[dict] = None, dense: Optional[dict] = None,
+                 is_coordinator: bool = True, barrier=lambda name="": None) -> dict:
+    """The reference's checkpoint protocol. Every process writes the files
+    of the shards it holds (streamed parts, or the single-file layout for a
+    shard given as exported arrays) and their counters sidecars; the
+    coordinator writes the dense leaves ({name: leaves in flatten order},
+    the same on every process). Then `barrier("ckpt-shards-written")`; the
+    coordinator writes the manifest, the commit point;
+    `barrier("ckpt-manifest-committed")`; the coordinator prunes stale
+    generations; `barrier("ckpt-pruned")`. Every process returns the
+    committed manifest. One process with every shard is its own
+    coordinator and needs no barrier."""
     os.makedirs(path, exist_ok=True)
     gen = _gen_name(path, step)
     gdir = os.path.join(path, gen)
@@ -343,10 +348,24 @@ def save_sharded(path: str, spec: TableSpec, shards_by_id: dict, num_shards: int
             save_shard_streamed(gdir, i, spec, shard, chunk_rows, compress=compress)
             _write_counters_sidecar(gdir, i, shard.counters)
     dense = dense or {}
-    for name, leaves in dense.items():
-        flat = {f"leaf{j}": np.asarray(x) for j, x in enumerate(leaves)}
-        _atomic_write(os.path.join(gdir, f"dense-{name}.npz"),
-                      lambda f, flat=flat: np.savez(f, **flat))
+    if is_coordinator:
+        for name, leaves in dense.items():
+            flat = {f"leaf{j}": np.asarray(x) for j, x in enumerate(leaves)}
+            _atomic_write(os.path.join(gdir, f"dense-{name}.npz"),
+                          lambda f, flat=flat: np.savez(f, **flat))
+    barrier("ckpt-shards-written")
+    if is_coordinator:
+        manifest = _commit(path, gdir, gen, spec, num_shards, step, sorted(dense), extras)
+    barrier("ckpt-manifest-committed")
+    if is_coordinator:
+        _prune_generations(path, keep=gen)
+    barrier("ckpt-pruned")
+    return manifest if is_coordinator else read_manifest(path)
+
+
+def _commit(path: str, gdir: str, gen: str, spec: TableSpec, num_shards: int, step: int,
+            dense_names: list, extras: Optional[dict]) -> dict:
+    """Count every shard's rows in its files and write the manifest."""
     counts = []
     for i in range(num_shards):
         n = 0
@@ -368,7 +387,7 @@ def save_sharded(path: str, spec: TableSpec, shards_by_id: dict, num_shards: int
         },
         "counts": counts,
         "dir": gen,
-        "dense": sorted(dense),
+        "dense": dense_names,
         "extras": extras or {},
     }
     saved_counters = _read_counters(gdir, num_shards)
@@ -376,7 +395,6 @@ def save_sharded(path: str, spec: TableSpec, shards_by_id: dict, num_shards: int
         manifest["counters"] = [int(x) for x in saved_counters]
     _atomic_write(os.path.join(path, "manifest.json"),
                   lambda f: f.write(json.dumps(manifest, indent=1).encode()))
-    _prune_generations(path, keep=gen)
     return manifest
 
 def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
@@ -478,13 +496,15 @@ def check_manifest(spec: TableSpec, m: dict) -> None:
 
 def restore_shards(
     spec: TableSpec, path: str, num_shards: int = 1, batch: int = _RESTORE_BATCH,
-    device="cuda",
-) -> Tuple[List[TableShard], dict]:
+    device="cuda", only_ids: Optional[set] = None,
+) -> Tuple[List[Optional[TableShard]], dict]:
     """Rebuild `num_shards` fresh shards on `device` from a checkpoint written
     with any shard count: every saved row is rehashed to its owner shard and
-    bulk-inserted. Raises if any row finds no slot (the target capacity is
-    too small), never truncating silently. The saved lifetime counters land
-    on shard 0; the restore's own inserts are not history."""
+    bulk-inserted. `only_ids` builds only those shards (a process's own in a
+    multi-process restore); the others are None. Raises if any row finds no
+    slot (the target capacity is too small), never truncating silently. The
+    saved lifetime counters land on shard 0; the restore's own inserts are
+    not history."""
     m = read_manifest(path)
     check_manifest(spec, m)
     if m.get("counts"):
@@ -493,7 +513,8 @@ def restore_shards(
         while b < min(batch, total):
             b *= 2
         batch = min(batch, b)
-    shards = [alloc_shard(spec, device) for _ in range(num_shards)]
+    wanted = sorted(range(num_shards) if only_ids is None else only_ids)
+    shards = [alloc_shard(spec, device) if s in wanted else None for s in range(num_shards)]
     n_full = spec.optimizer.num_fulldim_slots()
     step = m["step"]
     valid_all = torch.arange(batch, device=device)
@@ -513,9 +534,13 @@ def restore_shards(
             cols["accum"] = data["accum"]
         for j in range(n_full):
             cols[f"full{j}"] = data[f"full{j}"]
+        if len(wanted) < num_shards:  # only this process's rows go to the device
+            mine = np.isin(owner, wanted)
+            owner = owner[mine]
+            cols = {k: v[mine] for k, v in cols.items()}
         on_dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                   for k, v in cols.items()}
-        for s in range(num_shards):
+        for s in wanted:
             sel = torch.from_numpy(np.nonzero(owner == s)[0]).to(device)
             for o0 in range(0, sel.shape[0], batch):
                 idx = sel[o0:o0 + batch]
@@ -545,7 +570,8 @@ def restore_shards(
                     )
     saved = m.get("counters")
     if saved is not None:
-        for s, shard in enumerate(shards):
+        for s in wanted:
+            shard = shards[s]
             shard.counters.zero_()
             if s == 0:
                 vals = np.asarray(saved, np.int64)[: shard.counters.shape[0]]

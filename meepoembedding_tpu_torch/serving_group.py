@@ -10,7 +10,8 @@ of `serving.ScoringService`, so `serving.make_http_server` serves it.
 Request batches pad to a power of two, as the reference's do.
 
 `distributed=True` (members row-sharded over a mesh) is not ported: it
-waits for the distributed layer (ROADMAP, queue 1, "parallel/").
+waits for `ShardedGroupTrainer` (ROADMAP, queue 1, "parallel/ for
+groups").
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ class GroupScoringService:
                  feature_map: Sequence[str], model_cfg, distributed: bool = False, mesh=None,
                  device="cuda"):
         if distributed:
-            raise NotImplementedError("GroupScoringService(distributed=True) is not ported yet "
-                                      "(ROADMAP.md, queue 1, 'parallel/')")
+            raise NotImplementedError(
+                "GroupScoringService(distributed=True) is not ported yet (ROADMAP.md, queue 1, "
+                "'parallel/ for groups': ShardedGroupTrainer and the groups' sharded serving)")
         self._args = (run_cfg, dict(table_cfgs), list(feature_map), model_cfg)
         self.device = device
         self.distributed = distributed

@@ -16,11 +16,16 @@ copies them into the module, transposing the `nn.Linear` weights into
 (m, v, t): the moments shaped like the params, in f32, and the step as an
 int32 scalar; `to_jax_adam_state` gives its leaves from the port's
 (m, v, t).
+
+The reference's row-sharded trainer keeps its table as one stacked shard,
+every plane [S, ...] with shard s at index s; `shard_from_stacked` gives
+rank r's `TableShard` from those planes (as numpy arrays) and
+`stacked_from_shards` the stacked planes of the ranks' shards.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -98,3 +103,64 @@ def from_jax_adam_state(leaves, model: nn.Module, device) -> tuple:
                 for a, (p, tr) in zip((np.asarray(x) for x in part), mine)]
 
     return moments(leaves[:k]), moments(leaves[k:2 * k]), int(leaves[2 * k])
+
+
+# --- table shards: the reference's stacked [S, ...] planes -------------------
+
+_BUCKET_PLANES = ("key_hi", "key_lo", "cnt", "ovf", "freq", "last", "counters", "cms")
+
+
+def _rows_tensor(a: np.ndarray, rows: int, device) -> torch.Tensor:
+    """A reference values-like plane ([vrows, 128] lanes, the same bytes as
+    [rows, dim] row-major) as the port's [rows, dim]; a 2-byte float plane
+    (ml_dtypes' bfloat16, or its raw uint16 bits) as bfloat16."""
+    a = np.ascontiguousarray(a).reshape(rows, -1)
+    if a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def shard_from_stacked(stacked: Dict[str, object], rank: int, device="cpu"):
+    """Rank `rank`'s TableShard, on `device`, from the reference's stacked
+    shard planes: {"key_hi", "key_lo", "cnt", "ovf", "freq", "last",
+    "values", "counters", "cms": [S, ...] arrays, "opt_rowwise",
+    "opt_fulldim": lists of them}. Values-like planes keep their bits."""
+    from meepoembedding_tpu_torch.table.layout import TableShard
+
+    rows = stacked["key_hi"][rank].size  # a slot a bucket lane
+
+    def t(a):
+        return torch.from_numpy(np.array(a[rank])).to(device)
+
+    return TableShard(
+        values=_rows_tensor(stacked["values"][rank], rows, device),
+        opt_rowwise=tuple(t(p) for p in stacked["opt_rowwise"]),
+        opt_fulldim=tuple(_rows_tensor(p[rank], rows, device) for p in stacked["opt_fulldim"]),
+        **{n: t(stacked[n]) for n in _BUCKET_PLANES})
+
+
+def _host_plane(x: torch.Tensor) -> np.ndarray:
+    """A host copy; bfloat16 as its uint16 bits (numpy has no bfloat16)."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(np.uint16).copy()
+    return x.numpy().copy()
+
+
+def stacked_from_shards(shards: Sequence) -> Dict[str, object]:
+    """The reference's stacked planes of the ranks' shards (shard s = rank
+    s), the inverse of `shard_from_stacked`: values-like planes as [S,
+    rows * dim / 128, 128] lanes, bf16 as uint16 bits."""
+    def stack(planes):
+        return np.stack([_host_plane(p) for p in planes])
+
+    def lanes(planes):
+        return stack(planes).reshape(len(planes), -1, 128)
+
+    out = {n: stack([getattr(sh, n) for sh in shards]) for n in _BUCKET_PLANES}
+    out["values"] = lanes([sh.values for sh in shards])
+    out["opt_rowwise"] = [stack([sh.opt_rowwise[j] for sh in shards])
+                          for j in range(len(shards[0].opt_rowwise))]
+    out["opt_fulldim"] = [lanes([sh.opt_fulldim[j] for sh in shards])
+                          for j in range(len(shards[0].opt_fulldim))]
+    return out

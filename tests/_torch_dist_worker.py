@@ -1,0 +1,253 @@
+"""One rank of a gloo world running the port's row-sharded layer, for the
+multi-rank parity tests (after tests/_mh_worker.py). It imports torch, numpy
+and the port, never jax; caps torch at one thread; meets its peers through
+a FileStore; and runs the cases of a JSON spec in order, each reading its
+inputs from an npz and writing this rank's outputs to another.
+
+Usage: python tests/_torch_dist_worker.py RANK WORLD STORE_FILE SPEC_JSON
+
+SPEC_JSON: {"cases": [{"fn": <name below>, "in": <npz>, "out": <npz path
+with "{rank}">, "args": {...}}, ...], "force_exchange": bool}. Config
+arguments are the fields of the port's RunConfig, TableConfig (its
+"optimizer" a dict of OptimizerConfig, "policy" of PolicyConfig) and
+ModelConfig, as the JAX package's configs have them.
+"""
+
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+torch.set_num_threads(1)
+
+from meepoembedding_tpu_torch.backends.host_kv import PyKVStore  # noqa: E402
+from meepoembedding_tpu_torch.config import (  # noqa: E402
+    ModelConfig,
+    OptimizerConfig,
+    PolicyConfig,
+    RunConfig,
+    TableConfig,
+)
+from meepoembedding_tpu_torch.ops import dedup  # noqa: E402
+from meepoembedding_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from meepoembedding_tpu_torch.parallel import multihost  # noqa: E402
+from meepoembedding_tpu_torch.parallel import ragged as rg  # noqa: E402
+from meepoembedding_tpu_torch.parallel import sharded_table as st  # noqa: E402
+from meepoembedding_tpu_torch.parallel.trainer import ShardedTrainer  # noqa: E402
+from meepoembedding_tpu_torch.serving_sharded import ShardedScoringService  # noqa: E402
+from meepoembedding_tpu_torch.table import hashing  # noqa: E402
+from meepoembedding_tpu_torch.table.layout import TableSpec, alloc_shard  # noqa: E402
+from meepoembedding_tpu_torch.tiering import SpillCodec  # noqa: E402
+from meepoembedding_tpu_torch.weights import (  # noqa: E402
+    from_jax_params,
+    shard_from_stacked,
+    stacked_from_shards,
+    to_jax_params,
+)
+
+
+def table_config(args: dict) -> TableConfig:
+    t = dict(args)
+    if "optimizer" in t:
+        t["optimizer"] = OptimizerConfig(**t["optimizer"])
+    if "policy" in t:
+        t["policy"] = PolicyConfig(**t["policy"])
+    return TableConfig(**t)
+
+
+def model_config(args: dict) -> ModelConfig:
+    return ModelConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in args.items()})
+
+
+def planes(shard, prefix="") -> dict:
+    """The shard's planes as one rank of the reference's stacked layout."""
+    out = {}
+    for k, v in stacked_from_shards([shard]).items():
+        if isinstance(v, list):
+            for j, p in enumerate(v):
+                out[f"{prefix}{k}{j}"] = p
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def unstack(inp: dict, prefix: str) -> dict:
+    """`planes` of every rank, stacked, back to `shard_from_stacked`'s dict."""
+    st_ = {k[len(prefix):]: v for k, v in inp.items() if k.startswith(prefix)}
+    for kind in ("opt_rowwise", "opt_fulldim"):
+        keys = sorted((k for k in st_ if k.startswith(kind)), key=lambda k: int(k[len(kind):]))
+        st_[kind] = [st_.pop(k) for k in keys]
+    return st_
+
+
+def exchange(mesh, inp, args):
+    """Train lookups of `ids` [steps, S * n] (each rank its n), from the
+    stacked state `init_*` when given, then a probe of `probe` [S * n]:
+    owner, pos, ok and the rows of each step, the probe's rows, the shard."""
+    spec = TableSpec.from_config(table_config(args["table"]), num_shards=mesh.size)
+    shard = (shard_from_stacked(unstack(inp, "init_"), mesh.rank) if "init_key_hi" in inp
+             else alloc_shard(spec, "cpu"))
+    n = args["n"]
+    ragged = args.get("ragged", False)
+    cap = (rg.ragged_recv_cap(n, mesh.size, args["factor"]) if ragged
+           else st.a2a_capacity(n, mesh.size, args["factor"]))
+    out = {}
+
+    def lookup(ids, step, train):
+        hi, lo = hashing.split_ids_t(multihost.shard_batch(ids, mesh))
+        uniq = dedup.unique_pairs(hi, lo, n)
+        emb_u, ctx = st.exchange_lookup(spec, shard, uniq.hi, uniq.lo, uniq.valid, step, mesh,
+                                        cap, train=train, ragged=ragged)
+        return emb_u[uniq.inverse.long()], ctx
+
+    for s, ids in enumerate(inp["ids"]):
+        rows, ctx = lookup(ids, s + args.get("step0", 0), True)
+        out[f"rows{s}"] = rows.numpy()
+        if ragged:
+            out[f"ok{s}"] = ctx.plan.ok.numpy()
+        else:
+            for k in ("owner", "pos", "ok"):
+                out[f"{k}{s}"] = getattr(ctx, k).numpy()
+    rows, ctx = lookup(inp["probe"], 0, False)
+    out["probe_rows"] = rows.numpy()
+    out["probe_drops"] = ctx.n_drop.numpy()
+    out.update(planes(shard))
+    return out
+
+
+def _batch(inp, s, mesh):
+    return {k: multihost.shard_batch(inp[k][s], mesh) for k in ("dense", "ids", "label")}
+
+
+def trainer(mesh, inp, args):
+    """`steps` train steps from the JAX params `p*` (with `maintenance_every`,
+    maintenance into a per-rank PyKVStore every so many steps, and then a
+    step of the `promote_*` batch followed by maintenance), then optionally
+    an eval of batch `steps`, a `remove` of `remove_ids` and a save to
+    `save`: the flushed losses, the shard, the params, counters, factors
+    and the spill tier."""
+    run = RunConfig(**args["run"])
+    table = table_config(args["table"])
+    spill = None
+    if args.get("maintenance_every"):
+        spill = PyKVStore(SpillCodec(TableSpec.from_config(table, mesh.size)).width)
+    tr = ShardedTrainer(run, table, model_config(args["model"]), mesh=mesh, spill=spill)
+    from_jax_params(tr.model, [inp[f"p{j}"] for j in range(args["nparams"])])
+    if "restore" in args:
+        tr.load_checkpoint(args["restore"])
+    returned, factors, evicted = [], [], []
+    for s in range(args["steps"]):
+        returned.append(tr.train_step(_batch(inp, s, mesh))["loss"])
+        factors.append(tr.a2a_factor)
+        if spill is not None and (s + 1) % args["maintenance_every"] == 0:
+            tr._promoter.flush()  # the feeds so far staged, as on the JAX side
+            evicted.append(tr.maintenance()["evicted"])
+    out = {"losses": np.array([x for x in returned if x is not None]
+                              + [loss for _, loss in tr.flush()]),
+           "returned": np.array([np.nan if x is None else x for x in returned]),
+           "factors": np.array(factors), "evicted": np.array(evicted)}
+    if "promote_ids" in inp:  # spilled ids trained again come back at maintenance
+        tr.train_step({k: multihost.shard_batch(inp[f"promote_{k}"], mesh)
+                       for k in ("dense", "ids", "label")})
+        tr.flush()
+        tr._promoter.flush()
+        m = tr.maintenance()
+        out.update(promoted=m["promoted"], promote_evicted=m["evicted"])
+    if spill is not None:
+        out["spill_keys"] = np.array(sorted(spill._d), np.int64)
+        out["spill_rows"] = np.array([spill._d[k] for k in sorted(spill._d)], np.float32)
+    out["logits"] = tr.last_logits.numpy() if tr.last_logits is not None else np.zeros(0)
+    if args.get("eval"):
+        ev = tr.eval_step(_batch(inp, args["steps"], mesh))
+        out.update(eval_loss=ev["loss"], eval_logits=ev["logits"].numpy(),
+                   eval_drops=ev["route_drops"])
+    if "remove_ids" in inp:
+        out["removed"] = tr.remove(inp["remove_ids"])
+    if "save" in args:
+        tr.save_checkpoint(args["save"], extras=args.get("extras"))
+    c = tr.counters()
+    out["ctr_values"] = np.array([c[k] for k in sorted(c)])
+    out["ctr_names"] = np.array(sorted(c))
+    out["rows"] = len(tr)
+    out["capacity"] = tr.spec.capacity
+    out["step"] = tr.step
+    for j, p in enumerate(to_jax_params(tr.model)):
+        out[f"param{j}"] = p
+    out.update(planes(tr.shard))
+    return out
+
+
+def serve(mesh, inp, args):
+    """A ShardedScoringService on checkpoint `path`: this rank's scores of
+    `dense`/`ids` (global arrays), its rows of `lookup_ids`, stats; with
+    `http`, a POST /score and GET /healthz; with `reload`, a hot reload."""
+    svc = ShardedScoringService(args["path"], table_config(args["table"]),
+                                model_config(args["model"]), mesh=mesh,
+                                a2a_factor=args.get("factor", 1.25))
+    out = {"scores": svc.score(multihost.shard_batch(inp["dense"], mesh).numpy(),
+                               multihost.shard_batch(inp["ids"], mesh).numpy())}
+    out["rows"] = svc.lookup(multihost.shard_batch(inp["lookup_ids"], mesh).numpy()).numpy()
+    out["len"] = len(svc)
+    out["route_drops"] = svc.route_drops
+    out["metrics"] = np.array(svc.metrics_text())
+    if args.get("http"):
+        out.update(http(svc, inp))
+    if "reload" in args:
+        out["reload_rows"] = svc.reload(args["reload"])["rows"]
+    out.update(planes(svc.shard))
+    return out
+
+
+def http(svc, inp) -> dict:
+    """One POST /score and GET /healthz through `serving.make_http_server`."""
+    import threading
+    import urllib.request
+
+    from meepoembedding_tpu_torch.serving import make_http_server
+
+    server = make_http_server(svc, 0)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        body = json.dumps({"dense": inp["dense"][:5].tolist(),
+                           "ids": inp["ids"][:5].tolist()}).encode()
+        with urllib.request.urlopen(urllib.request.Request(url + "/score", data=body),
+                                    timeout=60) as r:
+            scores = json.loads(r.read())["scores"]
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=30)
+    return {"http_scores": np.array(scores), "http_rows": health["rows"],
+            "http_devices": health["devices"]}
+
+
+CASES = {"exchange": exchange, "trainer": trainer, "serve": serve}
+
+
+def main():
+    rank, world, store, spec_path = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                                     sys.argv[4])
+    with open(spec_path) as f:
+        spec = json.load(f)
+    st.FORCE_EXCHANGE = bool(spec.get("force_exchange", False))
+    pmesh.init_distributed("gloo", f"file://{store}", rank, world, device="cpu")
+    mesh = pmesh.make_mesh(device="cpu")
+    try:
+        for c in spec["cases"]:
+            with np.load(c["in"]) as z:
+                inp = {k: z[k] for k in z.files}
+            np.savez(c["out"].format(rank=rank), **CASES[c["fn"]](mesh, inp, c.get("args", {})))
+    finally:
+        pmesh.destroy()
+
+
+if __name__ == "__main__":
+    main()

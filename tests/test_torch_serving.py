@@ -152,11 +152,11 @@ def test_unported_paths_raise(ckpt):
 
 def test_chip_smoke_rehearses_on_cpu():
     """The card script's serve phase (checkpoint, restore, fill, requests,
-    row and score checks, HTTP), int8, train and lifecycle phases (eviction
-    into a spill tier, remove, promotion, checkpoints, growth), and the zoo,
-    embed, retrieval and group phases at a tiny size with the plain
-    versions. It must exit non-zero and print no result
-    line: a CPU run is no chip run."""
+    row and score checks, HTTP), int8, sharded (a gloo world of one), train
+    and lifecycle phases (eviction into a spill tier, remove, promotion,
+    checkpoints, growth), and the zoo, embed, retrieval and group phases at
+    a tiny size with the plain versions. It must exit non-zero and print no
+    result line: a CPU run is no chip run."""
     out = subprocess.run(
         [sys.executable, "chip_smoke.py", "--rehearse-on-cpu", "--capacity", str(1 << 14),
          "--fill-rows", "9000", "--ckpt-rows", "2000", "--part-rows", "800",
@@ -174,6 +174,10 @@ def test_chip_smoke_rehearses_on_cpu():
     assert "check embed parity: 3 steps" in out.stdout and "embed live: inserts" in out.stdout
     assert "retrieval: POST /retrieve matches retrieve" in out.stdout
     assert "equal the trainer's eval_step probabilities" in out.stdout
+    assert "check sharded parity (ragged exchange" in out.stdout
+    assert "sharded: the exchange's tax at S = 1" in out.stdout
+    assert "sharded serve: POST /score matches the direct score" in out.stdout
+    assert "restored into a ShardedTrainer and a Trainer" in out.stdout
     assert "rehearsal finished" in out.stdout
     assert '"ok": true' not in out.stdout
     assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke"))
