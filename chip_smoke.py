@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch + CUDA port's serving (f32 and int8), row-sharded,
-training, table-lifecycle, model-zoo, embed-API, retrieval and table-group
-paths on one card and check them.
+training, table-lifecycle, model-zoo, embed-API, retrieval, table-group and
+command-line paths on one card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -209,6 +209,34 @@ Phases (any failure exits non-zero and prints no result line):
            payload), remove, growth of item at grow_at_load; then
            save_checkpoint restored into a GroupScoringService, whose scores
            equal the trainer's eval_step probabilities and POST /score.
+  cli      the command line (`python -m meepoembedding_tpu_torch`), in two
+           parts, each with the counters set to 0 just before it. (a) Right
+           after the kernel checks, where the script holds the least device
+           memory: `train` from scratch in a subprocess through the module
+           entry point at config 2's width (dim 32, 2^27 slots, the default
+           DLRM, 5 + 30 steps of 4096 x 26 ids, --ckpt-dir), failing on a
+           non-finite loss or drops above 1% of inserts (its mean step, read
+           from its log, includes making each synthetic batch on the host,
+           which is timed apart); in-process
+           `ckpt-inspect` (its counts sum to the exported rows), `ckpt-export`
+           (npz) and `ckpt-import` of that checkpoint (the imported rows equal
+           the export bit for bit); `train --restore` of it for 5 steps;
+           `eval` and `serve` of it on the card and on the CPU at 2^21 slots
+           (examples equal, AUC within 1e-6, mean loss within rtol 1e-5,
+           printed scores within rtol 1e-5 / atol 2e-6); `bench-lookup` and
+           `bench-update` with --rows 1e8 --batch 524288 --steps 20, their
+           JSON lines printed. (b) After the sharded phase, on the serve
+           checkpoint (8,388,608 rows at 2^27 slots): `serve` of 32 batches of
+           4096 synthetic examples, scores within rtol 1e-5 / atol 1.5e-6 of
+           the serve phase's ScoringService on the same batches, and `eval` of
+           8 of them, whose AUC (within 1e-6) and mean loss (rtol 1e-5) are
+           those of that service's scores. Each in-process command is held to
+           its launches: a restore batch 3 sets and 2 gathers, a scoring
+           batch 4 gathers, a train step the train phase's, an import chunk 3
+           sets and 2 gathers and a saved part file 3 gathers, a bench
+           prefill batch 3 sets and 1 gather (max_probe_rounds 2) and a bench
+           cycle 1 set and 3 gathers (+ 3 K1 and 1 fetch-add to update), and
+           1 gather a planning round; inspect and export launch nothing.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. `--rehearse-on-cpu` runs every
@@ -216,7 +244,9 @@ phase but the kernel checks and timings on the CPU at the sizes given (the
 sharded phase on a gloo world of one, its tables at --capacity slots; the
 lifecycle's reduced-depth table at 2^14 slots; the zoo and embed phases on
 a fresh table of --capacity slots, bags of 4, 1 + 2 steps; a 2^12-item
-index; 2^12- to 2^14-slot group members) with the plain versions and
+index; 2^12- to 2^14-slot group members; the cli phase's train, restore
+and bench at --capacity slots and --batch examples, 1 + 2 steps) with the
+plain versions and
 exits 1 without a result: a dry run of the control flow on machines without
 a card.
 """
@@ -224,8 +254,11 @@ a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import gc
+import io
 import json
 import os
 import shutil
@@ -245,9 +278,11 @@ from meepoembedding_tpu_torch import (
     OptimizerConfig,
     ScoringService,
     TableConfig,
+    cli,
     embed,
     make_http_server,
 )
+from meepoembedding_tpu_torch import checkpoint as ckpt_io
 from meepoembedding_tpu_torch.backends import HostKVStore
 from meepoembedding_tpu_torch.checkpoint import export_shard_arrays, load_dense
 from meepoembedding_tpu_torch.config import LANES, PolicyConfig, RunConfig
@@ -258,6 +293,7 @@ from meepoembedding_tpu_torch.data import (
     SyntheticStream,
 )
 from meepoembedding_tpu_torch.data.criteo import write_synthetic_criteo_signal
+from meepoembedding_tpu_torch.metrics import StreamingAUC
 from meepoembedding_tpu_torch.group_train import GroupTrainer
 from meepoembedding_tpu_torch.kernels import (
     _build,
@@ -3030,6 +3066,304 @@ def zoo(args, table, dev, card: str) -> list:
     return results
 
 
+# --- the command line ----------------------------------------------------------
+
+CLI_DIR = ROOT / "build" / "chip_smoke_cli"
+CLI_TRAIN = (5, 30)  # warm-up and timed steps of the train subprocess
+CLI_BENCH = ("1e8", "524288", "20")  # --rows, --batch, --steps (README's bench commands)
+CLI_CPU_CAP = 1 << 21  # card against CPU: the train checkpoint's rows at load < 0.5
+# the printed scores carry 6 decimals: the serve phase's rtol 1e-5 / atol 1e-6 plus
+# half a unit of the 6th decimal (a score against a service's), or a unit (two prints)
+SCORE_TOL = dict(rtol=1e-5, atol=1.5e-6)
+PRINTED_TOL = dict(rtol=1e-5, atol=2e-6)
+AUC_TOL = 1e-6  # a logit that crosses one of the 8192 bins moves the AUC by ~1/(npos nneg)
+
+
+def cli_sets(args, capacity: int, steps: int, batch: int) -> list:
+    """--set of config 2 (dim 32, the default ModelConfig) at `capacity` slots."""
+    return ["--set", "table.dim=32", f"table.capacity={capacity}", f"run.batch_size={batch}",
+            f"run.steps={steps}", f"run.seed={args.seed}"]
+
+
+def cli_call(argv: list, dev, expect_rc: int = 0) -> dict:
+    """One in-process `cli.main(argv --device <dev>)`: its stdout's JSON
+    lines, stderr, seconds, and the kernel launches and insert-planning
+    rounds it made. Fails unless it exits with `expect_rc`."""
+    out, err = io.StringIO(), io.StringIO()
+    at, rounds = launches(), table_ops.plan_insert.rounds
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main([*argv, "--device", dev.type])
+    sync(dev)
+    secs = time.perf_counter() - t0
+    now = launches()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if rc != expect_rc:
+        raise AssertionError(f"cli {argv[0]} exited {rc}, not {expect_rc}: {err.getvalue()[-2000:]}")
+    text = out.getvalue()
+    # one JSON object a line (ckpt-inspect's indented object is read from "out")
+    return {"lines": [json.loads(x) for x in text.splitlines()
+                      if x.startswith("{") and x.endswith("}")],
+            "out": text, "err": err.getvalue(), "s": secs,
+            "launches": {k: now[k] - at[k] for k in now},
+            "rounds": table_ops.plan_insert.rounds - rounds}
+
+
+def hold_launches(what: str, res: dict, want: dict, dev) -> None:
+    """Fail unless a command launched exactly `want` (kernel -> launches;
+    row_gather without its planning rounds, which are added here)."""
+    if dev.type != "cuda":
+        return
+    want = {k: want.get(k, 0) for k in res["launches"]}
+    want["row_gather"] += res["rounds"]
+    if res["launches"] != want:
+        raise AssertionError(f"{what} launched {res['launches']} with {res['rounds']} planning "
+                             f"rounds, not {want}")
+
+
+def restore_batches(path) -> int:
+    """Insert batches of a one-shard checkpoint's restore into one shard:
+    each data file in batches of `restore_shards`' size."""
+    m = ckpt_io.read_manifest(str(path))
+    total = max(1, sum(m["counts"]))
+    b = 1024
+    while b < min(ckpt_io._RESTORE_BATCH, total):
+        b *= 2
+    b = min(b, ckpt_io._RESTORE_BATCH)
+    n = 0
+    for fp in ckpt_io._shard_files(ckpt_io._data_dir(str(path), m), 0):
+        with np.load(fp) as z:
+            n += -(-z["ids"].shape[0] // b)
+    return n
+
+
+def part_files(path) -> int:
+    m = ckpt_io.read_manifest(str(path))
+    return len(ckpt_io._shard_files(ckpt_io._data_dir(str(path), m), 0))
+
+
+def restore_launches(path, batches: int, steps: int = 0) -> dict:
+    """A restore (3 sets and the probe's 2 gathers a batch) followed by
+    `batches` probe-only scoring batches (4 gathers) or `steps` train steps
+    (4 gathers, 1 set, 1 fetch-add, 3 K1)."""
+    nb = restore_batches(path)
+    return {"row_scatter_set": 3 * nb + steps, "row_gather": 2 * nb + 4 * (batches + steps),
+            "row_scatter_add": steps, "row_merge_add": 3 * steps}
+
+
+def bench_launches(rows: float, batch: int, steps: int, update: bool) -> dict:
+    """bench-lookup/update: the prefill's insert batches (max_probe_rounds 2:
+    one probe gather, 3 sets), then 1 + 3 x steps cycles of a lookup (one
+    probe gather, the values, the rows by the inverse; 1 set) and, to
+    update, the segment sum and the sparse update (3 K1, 1 fetch-add)."""
+    prefill = -(-int(rows * 0.8) // min(batch, 1 << 20))
+    cycles = 1 + 3 * steps
+    return {"row_scatter_set": 3 * prefill + cycles, "row_gather": prefill + 3 * cycles,
+            "row_scatter_add": cycles if update else 0,
+            "row_merge_add": 3 * cycles if update else 0}
+
+
+def add_counts(total: dict, res: dict) -> None:
+    for k, v in res["launches"].items():
+        total[k] = total.get(k, 0) + v
+
+
+def cli_phase(args, dev, card: str) -> dict:
+    """The command line on the card (module docstring, `cli` phase, part
+    a): train through `python -m`, the checkpoint commands, train
+    --restore, card against CPU, the bench commands. Returns the launches
+    of its in-process commands."""
+    rehearse = dev.type == "cpu"
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    counts: dict = {}
+    cap = args.capacity
+    batch = args.batch if rehearse else TRAIN_BATCH
+    warm, timed = (1, 2) if rehearse else CLI_TRAIN
+    try:
+        # the host time of the batches the CLI's train makes inside its step loop
+        t0 = time.perf_counter()
+        list(SyntheticStream(SyntheticConfig(batch_size=batch, seed=args.seed)).batches(timed))
+        gen_ms = (time.perf_counter() - t0) / timed * 1e3
+        log(f"cli: SyntheticStream makes a batch of {batch} x 26 ids in {gen_ms:.3f} ms on the "
+            f"host (mean of {timed}); the CLI's train makes each inside its step loop")
+
+        # (1) train from scratch through the module entry point, in a subprocess
+        ck = CLI_DIR / "train"
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        cmd = [sys.executable, "-m", "meepoembedding_tpu_torch", "train", "--data", "synthetic",
+               "--ckpt-dir", str(ck), "--device", dev.type,
+               *cli_sets(args, cap, warm + timed, batch), f"run.log_every={warm}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
+                              env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        sub_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m meepoembedding_tpu_torch train exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+        logs = [x for x in lines if "loss" in x]
+        if lines[-1].get("steps") != warm + timed or not all(np.isfinite(x["loss"]) for x in logs):
+            raise AssertionError(f"train subprocess: final line {lines[-1]}, losses "
+                                 f"{[x['loss'] for x in logs]}")
+        first = next(x for x in logs if x["step"] == warm)
+        last = logs[-1]
+        # examples_per_sec is cumulative: the seconds at step `warm` and at the end
+        t_w = warm * batch / first["examples_per_sec"]
+        t_e = last["step"] * batch / last["examples_per_sec"]
+        step_ms = (t_e - t_w) / (last["step"] - warm) * 1e3
+        if last["ctr_drops"] > 0.01 * max(1, last["ctr_inserts"]):
+            raise AssertionError(f"train subprocess: {last['ctr_drops']} drops of "
+                                 f"{last['ctr_inserts']} inserts")
+        log(f"cli: python -m meepoembedding_tpu_torch train: {warm} + {timed} steps of {batch} x "
+            f"26 ids at {cap} slots in {sub_s:.1f} s (process start, build load, table, "
+            f"checkpoint); mean step {step_ms:.3f} ms over steps {warm + 1}-{last['step']} "
+            f"({timed * batch / (t_e - t_w):.0f} examples/s, from the log's cumulative "
+            f"examples/s); inserts {last['ctr_inserts']}, drops {last['ctr_drops']}, loss "
+            f"{logs[0]['loss']:.6f} -> {last['loss']:.6f}, final AUC {lines[-1]['final_auc']:.4f}"
+            f" on {card}")
+
+        # (2) inspect, export (npz) and import of that checkpoint
+        ins = cli_call(["ckpt-inspect", str(ck)], dev)
+        m = json.loads(ins["out"])
+        exp = cli_call(["ckpt-export", str(ck), "--out", str(CLI_DIR / "rows.npz")], dev)
+        rows = exp["lines"][-1]["rows"]
+        if m["total_rows"] != sum(m["counts"]) or m["total_rows"] != rows or rows == 0:
+            raise AssertionError(f"ckpt-inspect counts {m['counts']} / total {m['total_rows']} "
+                                 f"against {rows} exported rows")
+        imp = cli_call(["ckpt-import", str(CLI_DIR / "rows.npz"), "--out",
+                        str(CLI_DIR / "imported")], dev)
+        if imp["lines"][-1]["rows_imported"] != rows:
+            raise AssertionError(f"ckpt-import: {imp['lines'][-1]}")
+        with np.load(CLI_DIR / "rows.npz") as z:
+            want = {"ids": z["ids"], "values": z["values"]}
+        got = {k: np.concatenate([d[k] for d in ckpt_io.iter_rows(str(CLI_DIR / "imported"))])
+               for k in ("ids", "values")}
+        o_w, o_g = np.argsort(want["ids"]), np.argsort(got["ids"])
+        if not (np.array_equal(got["ids"][o_g], want["ids"][o_w])
+                and np.array_equal(got["values"][o_g].view(np.int32),
+                                   want["values"][o_w].view(np.int32))):
+            raise AssertionError("the imported checkpoint's rows differ from the export")
+        chunks = -(-rows // cli.IMPORT_CHUNK)
+        hold_launches("ckpt-import", imp, {"row_scatter_set": 3 * chunks, "row_gather": 2 * chunks
+                                           + 3 * part_files(CLI_DIR / "imported")}, dev)
+        for what, r in (("ckpt-inspect", ins), ("ckpt-export", exp)):
+            hold_launches(what, r, {}, dev)
+        for r in (ins, exp, imp):
+            add_counts(counts, r)
+        log(f"cli: ckpt-inspect {m['total_rows']} rows (counts {m['counts']}) in {ins['s']:.2f} s; "
+            f"ckpt-export npz {rows} rows in {exp['s']:.2f} s; ckpt-import in {imp['s']:.2f} s "
+            f"({chunks} assign chunks, launches {imp['launches']}); imported rows equal the "
+            f"export bit for bit")
+        shutil.rmtree(CLI_DIR / "imported")
+        (CLI_DIR / "rows.npz").unlink()
+
+        # (3) train --restore of the checkpoint, 5 steps, held to the train phase's launches
+        rs = cli_call(["train", "--restore", str(ck), *cli_sets(args, cap, 5, batch)], dev)
+        if rs["lines"][-1]["steps"] != warm + timed + 5:
+            raise AssertionError(f"train --restore: {rs['lines'][-1]}")
+        hold_launches("train --restore", rs, restore_launches(ck, 0, steps=5), dev)
+        add_counts(counts, rs)
+        log(f"cli: train --restore + 5 steps in {rs['s']:.2f} s; launches {rs['launches']} with "
+            f"{rs['rounds']} planning rounds ({restore_batches(ck)} restore batches)")
+
+        # (4) card against CPU: eval and serve of the checkpoint on both devices
+        small = cli_sets(args, min(cap, CLI_CPU_CAP), 2, batch)
+        outs = {}
+        for d in (dev, torch.device("cpu")):
+            ev = cli_call(["eval", "--ckpt", str(ck), *small], d)
+            sv = cli_call(["serve", "--ckpt", str(ck), "--emit", str(batch), *small], d)
+            outs[d.type] = (ev, sv)
+        (ev_d, sv_d), (ev_c, sv_c) = outs[dev.type], outs["cpu"]
+        e_d, e_c = ev_d["lines"][-1], ev_c["lines"][-1]
+        if (e_d["examples"], e_d["batches"]) != (e_c["examples"], e_c["batches"]) or \
+                abs(e_d["auc"] - e_c["auc"]) > AUC_TOL:
+            raise AssertionError(f"eval on {dev.type} {e_d} against the CPU's {e_c}")
+        np.testing.assert_allclose(e_d["mean_loss"], e_c["mean_loss"], rtol=1e-5)
+        for a, b in zip(sv_d["lines"], sv_c["lines"]):
+            np.testing.assert_allclose(a["scores"], b["scores"], **PRINTED_TOL)
+        if len(sv_d["lines"]) != 2 or len(sv_c["lines"]) != 2:
+            raise AssertionError("serve printed other than 2 batches")
+        hold_launches("eval", ev_d, restore_launches(ck, 2), dev)
+        hold_launches("serve", sv_d, restore_launches(ck, 2), dev)
+        add_counts(counts, ev_d)
+        add_counts(counts, sv_d)
+        log(f"cli: eval and serve, {dev.type} against the CPU, at {min(cap, CLI_CPU_CAP)} slots: "
+            f"AUC {e_d['auc']:.6f} / {e_c['auc']:.6f}, mean loss {e_d['mean_loss']:.7f} / "
+            f"{e_c['mean_loss']:.7f}, {2 * batch} scores within rtol 1e-5 / atol 2e-6 (eval "
+            f"{ev_d['s']:.2f} / {ev_c['s']:.2f} s, serve {sv_d['s']:.2f} / {sv_c['s']:.2f} s)")
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+
+    # (5) bench-lookup and bench-update at README's size
+    rows_, bbatch, bsteps = ((str(cap), str(batch), "2") if rehearse else CLI_BENCH)
+    bench = {}
+    for name in ("bench-lookup", "bench-update"):
+        r = cli_call([name, "--rows", rows_, "--batch", bbatch, "--steps", bsteps], dev)
+        line = r["lines"][-1]
+        if list(line) != ["metric", "value", "unit", "rows", "ms_per_step"] or line["value"] <= 0:
+            raise AssertionError(f"{name}: {line}")
+        hold_launches(name, r, bench_launches(float(rows_), int(bbatch), int(bsteps),
+                                              name == "bench-update"), dev)
+        add_counts(counts, r)
+        log(json.dumps(line))
+        log(f"cli: {name} --rows {rows_} --batch {bbatch} --steps {bsteps} in {r['s']:.1f} s "
+            f"(prefill included) on {card}; launches {r['launches']} with {r['rounds']} "
+            f"planning rounds")
+        bench[name] = line
+    return {"counts": counts, "train_step_ms": step_ms, "batch_gen_ms": gen_ms, "bench": bench}
+
+
+def cli_serve_phase(args, res, dev, card: str) -> dict:
+    """The command line on the serve phase's checkpoint (module docstring,
+    `cli` phase, part b): serve and eval at the serve phase's width, held
+    against its in-process ScoringService on the same batches. Returns
+    the launches of the two commands."""
+    svc, ck = res["svc"], res["ckpt"]
+    nbatch = args.requests
+    stream = SyntheticStream(SyntheticConfig(batch_size=args.batch, seed=args.seed))
+    batches = list(stream.batches(nbatch))
+    sv = cli_call(["serve", "--ckpt", str(ck), "--emit", str(args.batch),
+                   *cli_sets(args, args.capacity, nbatch, args.batch)], dev)
+    if len(sv["lines"]) != nbatch:
+        raise AssertionError(f"serve printed {len(sv['lines'])} batches, not {nbatch}")
+    probs = []
+    for line, b in zip(sv["lines"], batches):
+        p = svc.score(b["dense"], b["ids"])
+        probs.append(p)
+        np.testing.assert_allclose(line["scores"], p, **SCORE_TOL)
+    lat = json.loads(sv["err"].strip().splitlines()[-1])
+    hold_launches("serve", sv, restore_launches(ck, nbatch), dev)
+    log(f"cli: serve of the {args.ckpt_rows}-row checkpoint at {args.capacity} slots: {nbatch} "
+        f"batches of {args.batch} in {sv['s']:.2f} s (restore included), latency a batch "
+        f"{lat['serve_latency_ms']}; scores within rtol 1e-5 / atol 1.5e-6 of the serve phase's "
+        f"ScoringService; launches {sv['launches']}")
+
+    ev_steps = min(8, nbatch)
+    ev = cli_call(["eval", "--ckpt", str(ck), *cli_sets(args, args.capacity, ev_steps,
+                                                          args.batch)], dev)
+    e = ev["lines"][-1]
+    p = np.concatenate(probs[:ev_steps]).astype(np.float64)
+    y = np.concatenate([b["label"] for b in batches[:ev_steps]]).astype(np.float64)
+    want_loss = float(np.mean(-(y * np.log(p) + (1 - y) * np.log1p(-p))))
+    auc = StreamingAUC()
+    auc.update(torch.from_numpy(np.log(p) - np.log1p(-p)), torch.from_numpy(y))
+    if e["examples"] != ev_steps * args.batch or abs(e["auc"] - auc.compute()) > AUC_TOL:
+        raise AssertionError(f"eval {e} against the service's AUC {auc.compute()}")
+    np.testing.assert_allclose(e["mean_loss"], want_loss, rtol=1e-5)
+    hold_launches("eval", ev, restore_launches(ck, ev_steps), dev)
+    log(f"cli: eval of that checkpoint: {e} in {ev['s']:.2f} s, equal to the service's scores' "
+        f"AUC and loss; launches {ev['launches']}")
+    counts: dict = {}
+    add_counts(counts, sv)
+    add_counts(counts, ev)
+    return counts
+
+
 def main() -> int:
     args = parse_args()
 
@@ -3046,10 +3380,12 @@ def main() -> int:
         cpu = torch.device("cpu")
         log("rehearsal on the CPU: plain versions, no build, no timing, no result")
         card = "the CPU (rehearsal)"
+        cli_phase(args, cpu, card)
         try:
             res = serve(args, cpu, rng, card)
             int8(args, res, cpu, card)
             sharded_phase(args, res, cpu, card)
+            cli_serve_phase(args, res, cpu, card)
         finally:
             shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
         train(args, res["svc"].table, cpu, card)
@@ -3085,6 +3421,13 @@ def main() -> int:
 
     # each path runs with the launch counters set to 0 just before it
     cuda = torch.device("cuda")
+    # the command line first (cli, part a): its train subprocess then has the
+    # card to itself but for the kernel checks' freed planes
+    reset_launches()
+    t0 = time.perf_counter()
+    cli_res = cli_phase(args, cuda, card)
+    cli_counts = {k: cli_res["counts"].get(k, 0) for k in launches()}
+    log(f"cli: part a finished in {time.perf_counter() - t0:.1f} s; launches {cli_counts}")
     try:
         reset_launches()
         t0 = time.perf_counter()
@@ -3117,6 +3460,17 @@ def main() -> int:
         for name, count in sharded_counts.items():
             if count <= 0:
                 raise AssertionError(f"the sharded path never launched {name}")
+
+        # the command line's serve and eval on the serve checkpoint (cli, part b)
+        reset_launches()
+        t0 = time.perf_counter()
+        for k, v in cli_serve_phase(args, res, cuda, card).items():
+            cli_counts[k] += v
+        log(f"cli: part b finished in {time.perf_counter() - t0:.1f} s; launches of the "
+            f"phase {cli_counts} on {card}")
+        for name, count in cli_counts.items():
+            if count <= 0:
+                raise AssertionError(f"the command line never launched {name}")
     finally:
         shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
 
@@ -3227,6 +3581,7 @@ def main() -> int:
             "launches": train_counts[name], "launches_serve": serve_counts[name],
             "launches_lifecycle": life_counts[name], "launches_zoo": zoo_counts[name],
             "launches_int8": int8_counts[name], "launches_sharded": sharded_counts[name],
+            "launches_cli": cli_counts[name],
             **{f"launches_{p}": c[name] for p, c in phase_counts.items()},
             "max_abs_err": max(t["max_abs_err"] for t in mine), "ms": e["ms"],
             "device_ms": e["device_ms"], "kernel_ms": e["kernel_ms"],

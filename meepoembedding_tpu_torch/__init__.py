@@ -1,6 +1,6 @@
 """PyTorch + CUDA port of the dynamic embedding engine (serving, training,
 the table lifecycle, the Criteo input path, the model zoo, the embed API,
-table groups and the row-sharded layer).
+table groups, the row-sharded layer and the command line).
 
 `meepoembedding_tpu/` (JAX, TPU) is the reference; this package reproduces
 its serving path (checkpoint restore into a hash table, probe-only lookups,
@@ -26,6 +26,12 @@ visible:
   >>> init_distributed("gloo", "file:///tmp/store", rank, 4, device="cpu")
   >>> st = ShardedTrainer(RunConfig(), TableConfig(dim=32), ModelConfig(), device="cpu")
   >>> st.train_step(rank_rows)   # each rank passes its own rows of the batch
+
+The command line (`cli.py`) has the reference's subcommands and flags, plus
+`--device {cuda,cpu}`; installed, it is `meepo-torch`:
+
+  python -m meepoembedding_tpu_torch train --data synthetic --set run.steps=100
+  python -m meepoembedding_tpu_torch serve --ckpt /path/to/ckpt --http 8080
 """
 
 from meepoembedding_tpu_torch.config import (  # noqa: F401

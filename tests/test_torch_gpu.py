@@ -548,3 +548,20 @@ def test_criteo_stream_parses_natively(tmp_path):
     stream = PrefetchStream(CriteoStream(str(p), 64), depth=2)
     assert stream.parser == "native"
     assert len(list(stream.batches())) == 4
+
+
+@pytest.mark.gpu
+def test_cli_bench_update_on_card(capsys):
+    import json
+
+    from meepoembedding_tpu_torch import cli
+
+    _cuda()
+    before = {k.__name__: k.launches for k in (row_gather, row_scatter_add, row_merge_add)}
+    assert cli.main(["bench-update", "--rows", "65536", "--batch", "4096", "--steps", "2"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metric"] == "update_ids_per_sec_per_chip" and line["unit"] == "ids/s"
+    assert line["rows"] == 65536 and line["value"] > 0 and line["ms_per_step"] > 0
+    # 1 warm-up + 3 windows of 2 steps, each through the kernels
+    for k in (row_gather, row_scatter_add, row_merge_add):
+        assert k.launches - before[k.__name__] >= 7, k.__name__

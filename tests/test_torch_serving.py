@@ -154,8 +154,10 @@ def test_chip_smoke_rehearses_on_cpu():
     """The card script's serve phase (checkpoint, restore, fill, requests,
     row and score checks, HTTP), int8, sharded (a gloo world of one), train
     and lifecycle phases (eviction into a spill tier, remove, promotion,
-    checkpoints, growth), and the zoo, embed, retrieval and group phases at
-    a tiny size with the plain versions. It must exit non-zero and print no
+    checkpoints, growth), the zoo, embed, retrieval and group phases, and
+    the cli phase (train through `python -m`, export and import, card vs
+    CPU, the bench commands, serve and eval of the serve checkpoint) at a
+    tiny size with the plain versions. It must exit non-zero and print no
     result line: a CPU run is no chip run."""
     out = subprocess.run(
         [sys.executable, "chip_smoke.py", "--rehearse-on-cpu", "--capacity", str(1 << 14),
@@ -178,9 +180,15 @@ def test_chip_smoke_rehearses_on_cpu():
     assert "sharded: the exchange's tax at S = 1" in out.stdout
     assert "sharded serve: POST /score matches the direct score" in out.stdout
     assert "restored into a ShardedTrainer and a Trainer" in out.stdout
+    assert "cli: python -m meepoembedding_tpu_torch train: 1 + 2 steps" in out.stdout
+    assert "imported rows equal the export bit for bit" in out.stdout
+    assert "cli: eval and serve, cpu against the CPU" in out.stdout
+    assert '"metric": "update_ids_per_sec_per_chip"' in out.stdout
+    assert "equal to the service's scores' AUC and loss" in out.stdout
     assert "rehearsal finished" in out.stdout
     assert '"ok": true' not in out.stdout
     assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke"))
+    assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke_cli"))
 
 
 def test_port_imports_no_jax():
