@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch + CUDA port's serving (f32 and int8), row-sharded,
-training, table-lifecycle, model-zoo, embed-API, retrieval, table-group and
-command-line paths on one card and check them.
+column-sharded, training, table-lifecycle, model-zoo, embed-API, retrieval,
+table-group (single-device and sharded) and command-line paths on one card
+and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -98,6 +99,31 @@ Phases (any failure exits non-zero and prints no result line):
            protocol, restored into a ShardedTrainer and into a Trainer with
            every row and dense leaf equal. The process group is destroyed at
            the end of the phase.
+  colsharded  README's wide table (dim 256) on a 1 x 2 grid
+           (`ColShardedTrainer`, `make_mesh2d`): two rank processes of this
+           script (`--col-rank`) on the one card in a gloo group (NCCL
+           refuses two ranks on one device; at S = 1 no all-to-all runs, so
+           the collectives are gloo's CUDA all_gather, all_reduce and
+           broadcast, staged through the host). ctr_mlp (13 dense, 26
+           sparse, top 256-128-1), batches of 4096, rowwise AdaGrad. (a) A
+           small copy (2^16 slots, 3 of the same batches): the grid's
+           losses and merged rows within rtol 2e-3 / atol 2e-4 of a
+           single-device Trainer's on the card, and its 2-D checkpoint
+           restored into a Trainer with every row, freq and accumulator
+           bit-equal. (b) The main path, each rank with its counters set
+           to 0 just before it: 2^24 slots a rank (8 GiB of values; cut
+           from a deployment's capacity), LFU/TTL with a HostKVStore on
+           column 0; 5 + 30 timed steps, failing unless a step launches the
+           lifecycle's (2 sets, 2 row_scatter_add, 3 K1, 4 gathers + 1 a
+           planning round); 4 more steps with the column collectives timed
+           apart (their share of a step); an eviction pass (3 gathers, 2
+           sets; column 0 spills full-dim rows, as many as evicted);
+           spilled ids trained again and promoted back, their full rows
+           (blocks all-gathered) and accumulators equal to the payloads bit
+           for bit. Fails on drops or route drops, and unless the key
+           planes, cnt, ovf, freq, last, the accumulator and the counters
+           hash the same on both ranks. Each rank prints its launches and
+           times as a JSON line, which this process reads.
   train    the training path, with the counters set to 0 just before it: a
            Trainer with the default DLRM (tower from --seed) on the same
            table (2^27 slots, ~100M rows, dim 32, f32, rowwise AdaGrad)
@@ -130,7 +156,10 @@ Phases (any failure exits non-zero and prints no result line):
            [N, 8] int32 view, the [N, 4] side plane) at 8 requests'
            positions, and, after the group phase, the user member's
            [2^24, 64] values gather and add and the FTRL item member's
-           gather of z, n and values and its add into z, at a step's slots.
+           gather of z, n and values and its add into z, at a step's slots;
+           then the column block's shapes: the values gather and add on a
+           [2^24, 128] f32 plane and the gradient segment sum at 128 lanes,
+           on the slots of one step of the colsharded phase's ids.
   profile  torch.profiler over 8 requests and 4 assign batches: wall time,
            device busy time and the heaviest ops of each.
   lifecycle  with the counters set to 0 just before it. (a) On the live
@@ -209,6 +238,22 @@ Phases (any failure exits non-zero and prints no result line):
            payload), remove, growth of item at grow_at_load; then
            save_checkpoint restored into a GroupScoringService, whose scores
            equal the trainer's eval_step probabilities and POST /score.
+  group_sharded  with the counters set to 0 just before it, on a world
+           of one (NCCL) with FORCE_EXCHANGE, the group phase's members and
+           widths through `ShardedGroupTrainer`. (a) 3 steps of 512 x 26
+           ids on the card and on the CPU from one state, dense and ragged:
+           planes and counters equal, losses within rtol 1e-5 / atol 1e-6.
+           (b) 5 + 30 steps of 4096 examples at the group phase's
+           capacities for each exchange, failing on drops, route drops, or
+           other launches a step than each member's optimizer gives plus,
+           a member, the owner's gather by its dedup inverse and the
+           segment sum of the received gradients (2 K1) and, dense, the
+           gather of the returning rows; step p50 beside GroupTrainer's.
+           (c) At 2^20 slots a member, 5 steps: the sharded checkpoint
+           restored into a GroupTrainer with every row equal, and
+           GroupScoringService(distributed=True) against the single-device
+           service on it: 32 requests of 4096 examples, scores within rtol
+           1e-6, request p50 of both.
   cli      the command line (`python -m meepoembedding_tpu_torch`), in two
            parts, each with the counters set to 0 just before it. (a) Right
            after the kernel checks, where the script holds the least device
@@ -245,8 +290,9 @@ sharded phase on a gloo world of one, its tables at --capacity slots; the
 lifecycle's reduced-depth table at 2^14 slots; the zoo and embed phases on
 a fresh table of --capacity slots, bags of 4, 1 + 2 steps; a 2^12-item
 index; 2^12- to 2^14-slot group members; the cli phase's train, restore
-and bench at --capacity slots and --batch examples, 1 + 2 steps) with the
-plain versions and
+and bench at --capacity slots and --batch examples, 1 + 2 steps; the
+colsharded ranks on the CPU at --capacity slots; the sharded groups at
+2^12- to 2^13-slot members) with the plain versions and
 exits 1 without a result: a dry run of the control flow on machines without
 a card.
 """
@@ -258,6 +304,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import io
 import json
 import os
@@ -294,7 +341,7 @@ from meepoembedding_tpu_torch.data import (
 )
 from meepoembedding_tpu_torch.data.criteo import write_synthetic_criteo_signal
 from meepoembedding_tpu_torch.metrics import StreamingAUC
-from meepoembedding_tpu_torch.group_train import GroupTrainer
+from meepoembedding_tpu_torch.group_train import GroupTrainer, ShardedGroupTrainer
 from meepoembedding_tpu_torch.kernels import (
     _build,
     row_gather,
@@ -314,7 +361,9 @@ from meepoembedding_tpu_torch.kernels import (
 )
 from meepoembedding_tpu_torch.ops import dedup
 from meepoembedding_tpu_torch.parallel import mesh as pmesh
+from meepoembedding_tpu_torch.parallel import multihost
 from meepoembedding_tpu_torch.parallel import sharded_table as st
+from meepoembedding_tpu_torch.parallel.colsharded import ColShardedTrainer
 from meepoembedding_tpu_torch.parallel.mesh import make_mesh
 from meepoembedding_tpu_torch.parallel.trainer import ShardedTrainer
 from meepoembedding_tpu_torch.retrieval import RetrievalService
@@ -349,6 +398,9 @@ def parse_args():
     p.add_argument("--batch", type=int, default=4096,
                    help="examples per request (and per train step in a rehearsal)")
     p.add_argument("--rehearse-on-cpu", action="store_true")
+    p.add_argument("--col-rank", type=int, default=None,
+                   help="run one rank of the colsharded phase (the phase starts them)")
+    p.add_argument("--col-dir", default=None, help="the colsharded ranks' meeting directory")
     return p.parse_args()
 
 
@@ -2856,6 +2908,456 @@ def time_group_kernels(tr, batch, seed: int) -> list:
             check, "add_unique")))
     return out
 
+# --- the column-sharded table (two ranks on one card) ---------------------------------
+
+COL_DIM, COL_C = 256, 2  # README's wide table: dim 256 over C = 2 column blocks of 128 lanes
+COL_CAP = 1 << 24  # slots a rank: 8 GiB of f32 values at 128 lanes
+COL_SMALL_CAP = 1 << 16  # the small copy held against a single-device Trainer
+COL_STEPS = 30  # timed steps, after 5 warm-up
+COL_PROMOTE = 1024  # spilled ids trained again and promoted back
+# LFU/TTL keeps scores: a step launches the lifecycle's (touch adds a set and
+# a K3 add); the column collectives launch no kernel. An eviction pass: 3
+# gathers (the window, the export's bucket planes, its rows) and 2 sets.
+COL_STEP_LAUNCHES = {"row_scatter_set": 2, "row_scatter_add": 2, "row_merge_add": 3,
+                     "row_gather": 4}
+COL_PASS_LAUNCHES = {"row_scatter_set": 2, "row_scatter_add": 0, "row_merge_add": 0,
+                     "row_gather": 3}
+
+
+def col_configs(args, rehearse: bool):
+    """(run, the main table, the small copy, model) of the colsharded phase."""
+    bsz = args.batch if rehearse else TRAIN_BATCH
+    cap = args.capacity if rehearse else COL_CAP
+    policy = PolicyConfig(evict_policy="lfu_ttl", ttl_steps=4, lfu_min_freq=2,
+                          max_evict_per_pass=1 << 14 if not rehearse else cap // 8,
+                          evict_scan_buckets=cap // LANES // 8)
+    opt = OptimizerConfig(kind="rowwise_adagrad")
+    table = TableConfig(dim=COL_DIM, capacity=cap, optimizer=opt, policy=policy)
+    small = TableConfig(dim=COL_DIM, capacity=1 << 13 if rehearse else COL_SMALL_CAP,
+                        optimizer=opt)
+    run = RunConfig(batch_size=bsz, steps=3 if rehearse else 5 + COL_STEPS, seed=args.seed,
+                    pipeline_depth=0)
+    return run, table, small, ModelConfig(kind="ctr_mlp", embedding_dim=COL_DIM)
+
+
+def _rows_by_id(parts) -> dict:
+    """{id: (values row, freq, accum)} of checkpoint row dicts."""
+    out = {}
+    for p in parts:
+        for j, k in enumerate(p["ids"].tolist()):
+            out[k] = (p["values"][j], int(p["freq"][j]), float(p["accum"][j]))
+    return out
+
+
+def col_small_copy(mesh2d, run, small, mc, batches, dev, root: Path) -> None:
+    """Part a on the small copy: the grid against a single-device Trainer on
+    the card (rank 0), then the grid's checkpoint restored into a Trainer
+    with bit-equal rows."""
+    seed = run.seed + 103
+    grid = ColShardedTrainer(run, small, mc, mesh2d, device=dev,
+                             generator=torch.Generator().manual_seed(seed))
+    losses = [grid.train_step(b)["loss"] for b in batches]
+    ck = root / "small"
+    grid.save_checkpoint(str(ck))
+    rank = mesh2d.world.rank
+    if rank == 0:
+        single = Trainer(run, small, mc, device=dev,
+                         generator=torch.Generator().manual_seed(seed))
+        want = [single.train_step(b)["loss"] for b in batches]
+        np.testing.assert_allclose(losses, want, rtol=2e-3, atol=2e-4)
+        merged = _rows_by_id(ckpt_io.iter_rows(str(ck)))
+        mine = _rows_by_id([export_shard_arrays(single.spec, single.shard)])
+        if set(merged) != set(mine):
+            raise AssertionError("the grid and the single-device Trainer hold other ids")
+        ids = sorted(mine)
+        got = np.stack([merged[i][0] for i in ids])
+        ref = np.stack([mine[i][0] for i in ids])
+        np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-4)
+        restored = Trainer(run, small, mc, device=dev)
+        restored.load_checkpoint(str(ck))
+        back = _rows_by_id([export_shard_arrays(restored.spec, restored.shard)])
+        for i in ids:
+            a, b = back[i], merged[i]
+            if not (np.array_equal(a[0].view(np.int32), b[0].view(np.int32))
+                    and a[1:] == b[1:]):
+                raise AssertionError(f"restored row {i} differs from the grid's")
+        log(f"colsharded small copy: {len(batches)} steps of {batches[0]['ids'].shape} ids on a "
+            f"{small.capacity}-slot 1 x 2 grid; losses {losses} vs a single-device Trainer's "
+            f"{want} (rtol 2e-3); {len(ids)} merged rows within rtol 2e-3 (max |diff| "
+            f"{float(np.abs(got - ref).max())}); its 2-D checkpoint restored into a Trainer "
+            f"with every row, freq and accumulator bit-equal")
+    multihost.barrier("colsharded small copy", mesh2d.world)
+
+
+def _col_blocks(tr, keys) -> torch.Tensor:
+    """The full rows of `keys` on every rank: this rank's blocks all-gathered
+    over the column."""
+    slots = _slots(tr, keys)
+    return tr._full_rows(tr.shard.values[slots].contiguous())
+
+
+def col_rank_main(args) -> int:
+    """One rank of the colsharded phase (`--col-rank`): the small copy, then
+    the main path with the counters set to 0 just before it; prints its
+    results as the last JSON line."""
+    rehearse = args.rehearse_on_cpu
+    dev = torch.device("cpu" if rehearse else "cuda")
+    root = Path(args.col_dir)
+    rank = args.col_rank
+    pmesh.init_distributed("gloo", f"file://{root / 'store'}", rank, COL_C, device=dev)
+    try:
+        mesh2d = pmesh.make_mesh2d(1, COL_C, device=dev)
+        run, table, small, mc = col_configs(args, rehearse)
+        nsteps = run.steps
+        batches = list(SyntheticStream(SyntheticConfig(
+            batch_size=run.batch_size, seed=args.seed + 101, drift_per_step=500))
+            .batches(nsteps + 5))
+        col_small_copy(mesh2d, run, small, mc, batches[:3], dev, root)
+
+        # the main path
+        reset_launches()
+        store = HostKVStore(SpillCodec(TableSpec.from_config(table)).width) if rank == 0 else None
+        tr = ColShardedTrainer(run, table, mc, mesh2d, spill=store, device=dev,
+                               generator=torch.Generator().manual_seed(args.seed + 105))
+        c0 = tr.counters()
+        card = f"rank {rank} of a 1 x {COL_C} grid"
+        steps = run_steps(f"colsharded {card}", lambda b: tr.train_step(b)["loss"],
+                          batches[:nsteps], dev, card, COL_STEP_LAUNCHES)
+        # the column collectives' share of a step, on 4 more steps timed apart
+        coll = [0.0]
+
+        def timed(fn):
+            def call(x):
+                sync(dev)
+                t0 = time.perf_counter()
+                y = fn(x)
+                sync(dev)
+                coll[0] += time.perf_counter() - t0
+                return y
+            return call
+
+        tr._full_rows, tr._g2_mean = timed(tr._full_rows), timed(tr._g2_mean)
+        t0 = time.perf_counter()
+        for b in batches[nsteps:nsteps + 4]:
+            tr.train_step(b)
+        sync(dev)
+        inst_s = time.perf_counter() - t0
+        del tr._full_rows, tr._g2_mean
+        share = coll[0] / inst_s
+        log(f"colsharded {card}: the column collectives (all_gather of the [U, 128] blocks, "
+            f"all_reduce of the [U] sums of squares; gloo, staged through the host) take "
+            f"{1e3 * coll[0] / 4:.3f} ms of a {1e3 * inst_s / 4:.3f} ms instrumented step "
+            f"({100 * share:.1f}%)")
+
+        # an eviction pass: column 0 spills full-dim rows
+        at = launches()
+        t0 = time.perf_counter()
+        evicted = tr.maintenance()["evicted"]
+        sync(dev)
+        pass_ms = (time.perf_counter() - t0) * 1e3
+        pass_launches = _launch_delta(at)
+        if not rehearse and pass_launches != COL_PASS_LAUNCHES:
+            raise AssertionError(f"an eviction pass launched {pass_launches}")
+        if evicted <= 0 or (store is not None and len(store) != evicted):
+            raise AssertionError(f"evicted {evicted}, spill tier {store and len(store)}")
+
+        # promotion: spilled ids trained again come back, read back full-dim
+        keys = torch.zeros((min(COL_PROMOTE, evicted, run.batch_size),), dtype=torch.int64,
+                           device=dev)
+        payload = None
+        if store is not None:
+            k = next(store.export())[0][:keys.shape[0]]
+            keys.copy_(torch.from_numpy(k))
+            payload, _ = store.lookup_batch(k)
+        tr._col_broadcast(keys)
+        keys_np = keys.cpu().numpy()
+        b = dict(batches[nsteps + 4])
+        b["ids"] = b["ids"].copy()
+        b["ids"][:len(keys_np), 0] = keys_np
+        tr.train_step(b)
+        tr.flush()
+        if tr._promoter is not None:
+            tr._promoter.flush()
+        pst = tr._apply_promotions()  # the promotion half of maintenance()
+        rows = _col_blocks(tr, keys_np).cpu().numpy()
+        acc = tr.shard.opt_rowwise[0].view(-1)[_slots(tr, keys_np)].cpu().numpy()
+        if pst.inserted < len(keys_np) or payload is not None and not (
+                np.array_equal(rows.view(np.int32), payload[:, :COL_DIM].view(np.int32))
+                and np.array_equal(acc.view(np.int32), payload[:, COL_DIM + 1].view(np.int32))):
+            raise AssertionError(f"promotion: {pst} for {len(keys_np)} spilled ids")
+        counts = launches()
+        c1 = tr.counters()
+        if c1["drops"] - c0["drops"] or c1["route_drops"]:
+            raise AssertionError(f"colsharded drops: {c1}")
+        h = hashlib.sha256()
+        s = tr.shard
+        for p in (s.key_hi, s.key_lo, s.cnt, s.ovf, s.freq, s.last, s.opt_rowwise[0],
+                  s.counters):
+            h.update(p.cpu().numpy().tobytes())
+        log(f"colsharded {card}: eviction pass {pass_ms:.1f} ms, {evicted} rows evicted"
+            + (f" and spilled full-dim ({len(store)} in the store)" if store else "")
+            + f"; {len(keys_np)} spilled ids trained again, {pst.inserted} rows promoted back; "
+            f"their full rows and accumulators equal the payloads bit for bit; rows {len(tr)}; drops 0, route drops 0; "
+            f"launches {counts}")
+        print(json.dumps({"rank": rank, "launches": counts, "p50_ms": steps["p50_ms"],
+                          "p99_ms": steps["p99_ms"], "examples_per_s": steps["examples_per_s"],
+                          "collective_share": share, "collective_ms": 1e3 * coll[0] / 4,
+                          "instrumented_step_ms": 1e3 * inst_s / 4, "evicted": evicted,
+                          "promoted": pst.inserted, "rows": len(tr), "digest": h.hexdigest(),
+                          "loss_first": steps["loss_first"], "loss_last": steps["loss_last"]}),
+              flush=True)
+    finally:
+        pmesh.destroy()
+    return 0
+
+
+def colsharded_phase(args, dev, card: str) -> dict:
+    """The colsharded phase (module docstring): two rank processes of this
+    script on one card in a gloo group; their lines are relayed here.
+    Returns the launches summed over the ranks, and the ranks' results."""
+    rehearse = dev.type == "cpu"
+    root = ROOT / "build" / "chip_smoke" / "col"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--seed", str(args.seed),
+           "--batch", str(args.batch), "--capacity", str(args.capacity),
+           "--col-dir", str(root)] + (["--rehearse-on-cpu"] if rehearse else [])
+    procs = [subprocess.Popen(cmd + ["--col-rank", str(r)], stdout=subprocess.PIPE, text=True,
+                              cwd=str(ROOT)) for r in range(COL_C)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(root, ignore_errors=True)
+    res = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = out.splitlines()
+        for line in lines:
+            if not line.startswith("{"):
+                log(f"colsharded rank {r} | {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"colsharded rank {r} exited {p.returncode}")
+        res.append(json.loads([x for x in lines if x.startswith("{")][-1]))
+    if len({r["digest"] for r in res}) != 1:
+        raise AssertionError("the columns' key planes, cnt, freq, last and accumulator differ")
+    total = {k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
+    log(f"colsharded: a 1 x {COL_C} grid of dim {COL_DIM} ({COL_DIM // COL_C} lanes a rank) on "
+        f"one card over gloo: step p50 " + ", ".join(f"{r['p50_ms']:.3f}" for r in res)
+        + " ms, p99 " + ", ".join(f"{r['p99_ms']:.3f}" for r in res) + " ms a rank; column "
+        f"collectives " + ", ".join(f"{100 * r['collective_share']:.1f}%" for r in res)
+        + f" of an instrumented step (gloo through the host; NVLink not measured); key "
+        f"planes, cnt, freq, last and accumulator bit-identical across the columns; "
+        f"launches {total} on {card}")
+    return {"launches": total, "ranks": res}
+
+
+def time_col_kernels(args, seed: int) -> list:
+    """The column block's shapes: a step's 128-lane values gather and add on
+    a [2^24, 128] f32 plane at the slots of one step of the colsharded
+    phase's ids, and the gradient segment sum of that step at 128 lanes."""
+    run, _, _, mc = col_configs(args, False)
+    cfg = TableConfig(dim=COL_DIM // COL_C, capacity=COL_CAP,
+                      optimizer=OptimizerConfig(kind="rowwise_adagrad"))
+    tr = Trainer(run, cfg, dataclasses.replace(mc, embedding_dim=cfg.dim), device="cuda",
+                 generator=torch.Generator().manual_seed(seed + 107))
+    batch = next(iter(SyntheticStream(SyntheticConfig(batch_size=run.batch_size,
+                                                      seed=args.seed + 101)).batches(1)))
+    dev, shard, spec = tr.device, tr.shard, tr.spec
+    g = torch.Generator(device=dev).manual_seed(seed + 109)
+    hi, lo = hashing.split_ids_t(torch.from_numpy(batch["ids"]).to(dev).reshape(-1))
+    n = hi.shape[0]
+    uniq = dedup.unique_pairs(hi, lo, n)
+    tr.train_step(batch)
+    pr = table_ops.probe(spec, shard, uniq.hi, uniq.lo, uniq.valid)
+    ok, C, W = pr.found, spec.capacity, spec.dim
+    T, U = int(ok.sum()), uniq.hi.shape[0]
+    shifts = [((pr.slot.long() + k * 7919 * LANES) % C) for k in range(8)]
+    vrows = [torch.where(ok, s, -1).to(torch.int32) for s in shifts]
+    vrow64 = [s[ok] for s in shifts]
+    vals = shard.values
+    out = [("row_gather", gather_entry("column block: values rows per step (128 lanes)", vals,
+                                       [v.clamp(min=0) for v in vrows]))]
+    zero = torch.zeros((U, W), device=dev)
+
+    def merge_check():
+        got, want = vals.clone(), vals.clone()
+        for i in vrows[:2]:
+            upd = torch.randn((U, W), device=dev, generator=g) * 1e-3
+            row_merge_add(got, i, upd)
+            row_merge_add_plain(want, i, upd)
+        return max_abs_err("row_merge_add", got, want)
+
+    out.append(("row_merge_add", entry(
+        "column block: values update per step (unique rows, 128 lanes)",
+        f"{tuple(vals.shape)} {vals.dtype}, m={U} ({T} valid rows)",
+        4 * U + 4 * W * T + 2 * T * W * vals.element_size(),
+        [lambda v=v: row_merge_add(vals, v, zero) for v in vrows],
+        [lambda v=v: row_merge_add_plain(vals, v, zero) for v in vrows],
+        [lambda v=v: vals.index_add_(0, v, zero[:T]) for v in vrow64],
+        merge_check, "add_unique")))
+    inv, order, sids = uniq.inverse, uniq.order, uniq.sorted_ids
+    grads = [torch.randn((n, W), device=dev, generator=g) * 1e-3 for _ in range(8)]
+    runs = int(torch.unique(inv).shape[0])
+
+    def seg_check():
+        got = dedup.segment_sum_grads(grads[0], inv, U, order, sids)
+        want = row_merge_add_plain(torch.zeros((U, W), device=dev), inv, grads[0])
+        return within_order_bound(got, want, order_bound(torch.zeros_like(got), inv, grads[0]))
+
+    out.append(("row_merge_add", entry(
+        f"column block: gradient segment sum per step (128 lanes, S={segment_size()})",
+        f"[{n}, {W}] f32 -> [{U}, {W}] f32 ({runs} distinct rows)",
+        4 * n + 4 * W * n + 4 * W * runs,
+        [lambda x=x: dedup.segment_sum_grads(x, inv, U, order, sids) for x in grads],
+        [lambda x=x: row_merge_add_plain(torch.zeros((U, W), device=dev), inv, x)
+         for x in grads],
+        [lambda x=x: torch.zeros((U, W), device=dev).index_add_(0, inv.long(), x)
+         for x in grads],
+        seg_check, "segment_")))
+    log_timings(out)
+    del tr, vals, shard
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- the sharded table groups (a world of one) -----------------------------------------
+
+GROUP_SHARDED_CAP = 1 << 20  # part c's members
+GROUP_SHARDED_REQUESTS = 32
+
+
+def group_sharded_launches(cfgs: dict, ragged: bool) -> dict:
+    """A ShardedGroupTrainer step at S = 1 with FORCE_EXCHANGE: each member's
+    `member_launches`, plus the owner side's gather of its rows by its dedup
+    inverse and the segment sum of the received gradients (2 K1), and, for
+    the dense exchange, the gather of the returning rows."""
+    total = group_launches(cfgs)
+    for _ in cfgs:
+        total["row_merge_add"] += 2
+        total["row_gather"] += 1 if ragged else 2
+    return total
+
+
+def group_sharded_phase(args, group_p50: float, dev, card: str) -> dict:
+    """The group_sharded phase (module docstring) on a world of one with
+    FORCE_EXCHANGE on; the process group is destroyed at its end."""
+    rehearse = dev.type == "cpu"
+    bsz = args.batch if rehearse else TRAIN_BATCH
+    nsteps = 3 if rehearse else 5 + TRAIN_STEPS
+    mc = ModelConfig(kind="ctr_mlp")
+    mesh = make_mesh(device=dev)
+    meshes = {"cpu": make_mesh(device="cpu"), "card": mesh}
+    out = {}
+    try:
+        st.FORCE_EXCHANGE = True
+        # (a) 3 steps on the card and on the CPU from one state
+        pcaps = {"user": 1 << 16, "item": 1 << 16, "ctx": 1 << 17}
+        pb = list(SyntheticStream(SyntheticConfig(batch_size=512, seed=args.seed + 111))
+                  .batches(3))
+        for ragged in (False, True):
+            name = "ragged" if ragged else "dense"
+            runs = {}
+            for k, m in meshes.items():
+                tr = ShardedGroupTrainer(RunConfig(batch_size=512, steps=3, seed=args.seed,
+                                                   a2a_ragged=ragged, pipeline_depth=0),
+                                         group_cfgs(pcaps), GROUP_FEATURES, mc, mesh=m,
+                                         generator=torch.Generator().manual_seed(args.seed + 113))
+                runs[k] = (tr, [tr.train_step(b)["loss"] for b in pb])
+            (ctr, closs), (gtr, gloss) = runs["cpu"], runs["card"]
+            errs = {n: planes_agree(f"group_sharded parity {name} {n}", gtr.shards[n],
+                                    ctr.shards[n]) for n in ctr.names}
+            if gtr.counters() != ctr.counters():
+                raise AssertionError(f"group_sharded parity {name}: counters differ")
+            np.testing.assert_allclose(gloss, closs, rtol=1e-5, atol=1e-6)
+            log(f"check group_sharded parity ({name} exchange, FORCE_EXCHANGE): 3 steps of 512 x "
+                f"26 ids over {ctr.names}, {dev} vs CPU: planes and counters equal; max |{dev} - "
+                f"CPU| {errs}; losses {gloss}")
+            del runs, ctr, gtr
+
+        # (b) steps of 4096 examples at config 2's widths, each exchange
+        cfgs = group_cfgs({"user": 1 << 12, "item": 1 << 12, "ctx": 1 << 13} if rehearse
+                          else GROUP_CAPS)
+        batches = list(SyntheticStream(SyntheticConfig(batch_size=bsz, seed=args.seed + 115))
+                       .batches(nsteps))
+        for ragged in (False, True):
+            name = "ragged" if ragged else "dense"
+            tr = ShardedGroupTrainer(RunConfig(batch_size=bsz, steps=nsteps, seed=args.seed,
+                                               a2a_ragged=ragged, pipeline_depth=0), cfgs,
+                                     GROUP_FEATURES, mc,
+                                     mesh=mesh,
+                                     generator=torch.Generator().manual_seed(args.seed + 117))
+            c0 = {n: dict(c) for n, c in tr.counters().items()}
+            out[name] = run_steps(f"group_sharded {name}", lambda b: tr.train_step(b)["loss"],
+                                  batches, dev, card, group_sharded_launches(cfgs, ragged))
+            c1 = tr.counters()
+            for n in tr.names:
+                check_drops(f"group_sharded {name} {n}", c0[n], c1[n])
+            if tr.a2a_factor != tr.run_cfg.a2a_factor:  # resized after route drops
+                raise AssertionError(f"group_sharded {name}: route drops")
+            del tr
+            gc.collect()
+        log(f"group_sharded: step p50 dense {out['dense']['p50_ms']:.3f} ms, ragged "
+            f"{out['ragged']['p50_ms']:.3f} ms, GroupTrainer's {group_p50:.3f} ms (the group "
+            f"phase) on {card}")
+
+        # (c) reduced depth: a sharded checkpoint -> GroupTrainer and the services
+        cap = 1 << 13 if rehearse else GROUP_SHARDED_CAP
+        cfgs = group_cfgs({"user": cap, "item": cap, "ctx": cap})
+        run_cfg = RunConfig(batch_size=bsz, steps=5, seed=args.seed, pipeline_depth=0)
+        tr = ShardedGroupTrainer(run_cfg, cfgs, GROUP_FEATURES, mc, mesh=mesh,
+                                 generator=torch.Generator().manual_seed(args.seed + 119))
+        more = list(SyntheticStream(SyntheticConfig(batch_size=bsz, seed=args.seed + 121))
+                    .batches(5 + GROUP_SHARDED_REQUESTS))
+        for b in more[:5]:
+            tr.train_step(b)
+        root = ROOT / "build" / "chip_smoke" / "group_sharded"
+        shutil.rmtree(root, ignore_errors=True)
+        try:
+            tr.save_checkpoint(str(root))
+            single = GroupTrainer(run_cfg, cfgs, GROUP_FEATURES, mc, device=dev)
+            single.load_checkpoint(str(root))
+            for n in tr.names:
+                a = export_shard_arrays(tr.specs[n], tr.shards[n])
+                b = export_shard_arrays(single.specs[n], single.shards[n])
+                oa, ob = np.argsort(a["ids"]), np.argsort(b["ids"])
+                for k in a:
+                    if not np.array_equal(a[k][oa], b[k][ob]):
+                        raise AssertionError(f"group_sharded restore: {n} {k} differs")
+            svc = GroupScoringService(str(root), run_cfg, cfgs, GROUP_FEATURES, mc,
+                                      distributed=True, mesh=mesh, device=dev)
+            ref = GroupScoringService(str(root), run_cfg, cfgs, GROUP_FEATURES, mc, device=dev)
+            lat = {"distributed": [], "single": []}
+            for b in more[5:]:
+                scores = {}
+                for k, s in (("distributed", svc), ("single", ref)):
+                    t0 = time.perf_counter()
+                    scores[k] = s.score(b["dense"], b["ids"])
+                    lat[k].append((time.perf_counter() - t0) * 1e3)
+                np.testing.assert_allclose(scores["distributed"], scores["single"], rtol=1e-6,
+                                           atol=0)
+            if svc.route_drops:
+                raise AssertionError(f"group_sharded service: {svc.route_drops} route drops")
+            out["request_p50_ms"] = float(np.percentile(lat["distributed"][1:], 50))
+            out["single_request_p50_ms"] = float(np.percentile(lat["single"][1:], 50))
+            rows = sum(c["rows"] for c in tr.counters().values())
+            log(f"group_sharded: a sharded group checkpoint ({rows} rows) restores into a GroupTrainer with every row equal; "
+                f"GroupScoringService(distributed=True) scores {len(lat['single'])} requests of "
+                f"{bsz} examples as the single-device service (rtol 1e-6): request p50 "
+                f"{out['request_p50_ms']:.3f} ms vs {out['single_request_p50_ms']:.3f} ms on "
+                f"{card}")
+        finally:
+            shutil.rmtree(root.parent, ignore_errors=True)
+    finally:
+        st.FORCE_EXCHANGE = False
+        pmesh.destroy()
+    return out
+
+
 # --- main ----------------------------------------------------------------------
 
 # --- the model zoo ---------------------------------------------------------------
@@ -3366,6 +3868,8 @@ def cli_serve_phase(args, res, dev, card: str) -> dict:
 
 def main() -> int:
     args = parse_args()
+    if args.col_rank is not None:
+        return col_rank_main(args)
 
     rehearse = args.rehearse_on_cpu
     if not rehearse and not torch.cuda.is_available():
@@ -3385,6 +3889,7 @@ def main() -> int:
             res = serve(args, cpu, rng, card)
             int8(args, res, cpu, card)
             sharded_phase(args, res, cpu, card)
+            colsharded_phase(args, cpu, card)
             cli_serve_phase(args, res, cpu, card)
         finally:
             shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
@@ -3397,6 +3902,7 @@ def main() -> int:
                                               device=cpu), cpu, card)
         retrieval(args, cpu, card)
         group_phase(args, cpu, card)
+        group_sharded_phase(args, 0.0, cpu, card)
         log(f"rehearsal finished in {time.perf_counter() - t_start:.1f} s")
         return 1
 
@@ -3460,6 +3966,16 @@ def main() -> int:
         for name, count in sharded_counts.items():
             if count <= 0:
                 raise AssertionError(f"the sharded path never launched {name}")
+
+        # the column-sharded table: two rank processes on the card, each
+        # setting its counters to 0 just before its main path
+        t0 = time.perf_counter()
+        col = colsharded_phase(args, cuda, card)
+        log(f"colsharded: phase finished in {time.perf_counter() - t0:.1f} s")
+        for r in col["ranks"]:
+            for name, count in r["launches"].items():
+                if count <= 0:
+                    raise AssertionError(f"colsharded rank {r['rank']} never launched {name}")
 
         # the command line's serve and eval on the serve checkpoint (cli, part b)
         reset_launches()
@@ -3558,7 +4074,24 @@ def main() -> int:
     run_profiled("group", lambda: [out["trainer"].train_step(b) for b in out["spare"][:2]], 2,
                  "step")
     timings += time_group_kernels(out["trainer"], out["spare"][2], args.seed)
+    group_p50 = out["steps"]["p50_ms"]
     del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    timings += time_col_kernels(args, args.seed)
+    phase_counts["colsharded"] = col["launches"]
+
+    # the sharded table groups on a world of one, with the counters set to 0
+    # just before them
+    reset_launches()
+    t0 = time.perf_counter()
+    group_sharded_phase(args, group_p50, cuda, card)
+    phase_counts["group_sharded"] = launches()
+    log(f"group_sharded: path finished in {time.perf_counter() - t0:.1f} s; launches "
+        f"{phase_counts['group_sharded']} on {card}")
+    for kname, count in phase_counts["group_sharded"].items():
+        if count <= 0:
+            raise AssertionError(f"the group_sharded path never launched {kname}")
     meta = {
         "row_gather": ("meepoembedding_tpu_torch/csrc/row_gather.cu",
                        "meepoembedding_tpu/table/pallas_ops.py:58"),

@@ -1,15 +1,15 @@
 """PyTorch + CUDA port of the dynamic embedding engine (serving, training,
 the table lifecycle, the Criteo input path, the model zoo, the embed API,
-table groups, the row-sharded layer and the command line).
+table groups, the row- and column-sharded layers and the command line).
 
 `meepoembedding_tpu/` (JAX, TPU) is the reference; this package reproduces
 its serving path (checkpoint restore into a hash table, probe-only lookups,
 scoring, int8 tables, two-tower retrieval), its training path
 (insert-on-miss lookups, the sparse optimizers, every model kind of its
 zoo, the differentiable `embed` pair), its table lifecycle, its groups of
-heterogeneous tables on one device, its Criteo input path and its
-row-sharded training and serving over `torch.distributed` for an NVIDIA
-H100. Plain tensor code is
+heterogeneous tables, its Criteo input path, and its row-sharded and
+column-sharded training and serving over `torch.distributed` for an
+NVIDIA H100. Plain tensor code is
 PyTorch; the four row kernels the paths run are hand-written CUDA
 (`csrc/`), built with `nvcc` at first use. CPU tensors take each kernel's
 plain PyTorch version, which is how the tests run on machines without a

@@ -1,7 +1,7 @@
 """Checkpoints in the reference's format (port of
-`meepoembedding_tpu/checkpoint.py`: the writer, :54-523, with the
-multi-process protocol, and the reader, :607-797; `save_sharded2d` and
-`restore_shards(lane_slice=)` wait for the column-sharded layout).
+`meepoembedding_tpu/checkpoint.py`: the writer, :54-600, with the
+multi-process protocol and the column-sharded `save_sharded2d`, and the
+reader, :607-797, with `restore_shards(lane_slice=)`).
 
 The on-disk format is the reference's, so a checkpoint written by either
 package restores into the other with bit-exact rows:
@@ -397,6 +397,66 @@ def _commit(path: str, gdir: str, gen: str, spec: TableSpec, num_shards: int, st
                   lambda f: f.write(json.dumps(manifest, indent=1).encode()))
     return manifest
 
+def save_sharded2d(path: str, spec_local: TableSpec, global_dim: int, shards_by_sc: dict,
+                   num_shards: int, num_cols: int, step: int, extras: Optional[dict] = None,
+                   dense: Optional[dict] = None, is_coordinator: bool = True,
+                   barrier=lambda name="": None) -> dict:
+    """Checkpoint a column-sharded table (`parallel/colsharded.py`): each
+    (row shard s, column c) given in `shards_by_sc` writes its own lane
+    block, `export_shard_arrays` plus `lane_offset` = c * dim / C, to
+    shard-SSSSS.colCC.npz; `iter_rows` merges the columns into full-dim
+    rows, so the checkpoint restores onto any layout. The same generation
+    directory and commit protocol as `save_sharded`; the manifest counts
+    the rows of column 0 and records `col_shards`. Like the reference's
+    writer it keeps no counters sidecar."""
+    os.makedirs(path, exist_ok=True)
+    gen = _gen_name(path, step)
+    gdir = os.path.join(path, gen)
+    os.makedirs(gdir, exist_ok=True)
+    for (s, c), shard in shards_by_sc.items():
+        arrs = export_shard_arrays(spec_local, shard)
+        arrs["lane_offset"] = np.int32(c * spec_local.dim)
+        _atomic_write(os.path.join(gdir, f"shard-{s:05d}.col{c:02d}.npz"),
+                      lambda f, arrs=arrs: np.savez(f, **arrs))
+    dense = dense or {}
+    if is_coordinator:
+        for name, leaves in dense.items():
+            flat = {f"leaf{j}": np.asarray(x) for j, x in enumerate(leaves)}
+            _atomic_write(os.path.join(gdir, f"dense-{name}.npz"),
+                          lambda f, flat=flat: np.savez(f, **flat))
+    barrier("ckpt-shards-written")
+    if is_coordinator:
+        counts = []
+        for i in range(num_shards):
+            with np.load(os.path.join(gdir, f"shard-{i:05d}.col00.npz")) as z:
+                counts.append(int(z["ids"].shape[0]))
+        manifest = {
+            "format": FORMAT_VERSION,
+            "num_shards": num_shards,
+            "col_shards": num_cols,
+            "dim": int(global_dim),
+            "capacity_per_shard": spec_local.capacity,
+            "step": int(step),
+            "value_dtype": spec_local.value_dtype,
+            "optimizer": {
+                "kind": spec_local.optimizer.kind,
+                "rowwise_slots": spec_local.optimizer.num_rowwise_slots(),
+                "fulldim_slots": spec_local.optimizer.num_fulldim_slots(),
+            },
+            "counts": counts,
+            "dir": gen,
+            "dense": sorted(dense),
+            "extras": extras or {},
+        }
+        _atomic_write(os.path.join(path, "manifest.json"),
+                      lambda f: f.write(json.dumps(manifest, indent=1).encode()))
+    barrier("ckpt-manifest-committed")
+    if is_coordinator:
+        _prune_generations(path, keep=gen)
+    barrier("ckpt-pruned")
+    return manifest if is_coordinator else read_manifest(path)
+
+
 def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
     """Raw bfloat16 bits (uint16) -> the exact float32 values."""
     return (bits.astype(np.uint32) << np.uint32(16)).view(np.float32)
@@ -482,12 +542,20 @@ def load_dense(path: str, name: str) -> List[np.ndarray]:
         return [z[f"leaf{j}"] for j in range(len(z.files))]
 
 
-def check_manifest(spec: TableSpec, m: dict) -> None:
-    """Raise unless a checkpoint's manifest fits `spec` (dim and optimizer):
-    the check a restore makes before it allocates anything, which callers
-    that drop their old planes first make before they drop them."""
-    if m["dim"] != spec.dim:
-        raise ValueError(f"dim mismatch: ckpt {m['dim']} vs spec {spec.dim}")
+def check_manifest(spec: TableSpec, m: dict, lane_slice: Optional[Tuple[int, int]] = None
+                   ) -> None:
+    """Raise unless a checkpoint's manifest fits `spec` (dim, or the lane
+    block `lane_slice` = (off, d) of its rows, and optimizer): the check a
+    restore makes before it allocates anything, which callers that drop
+    their old planes first make before they drop them."""
+    if lane_slice is None:
+        if m["dim"] != spec.dim:
+            raise ValueError(f"dim mismatch: ckpt {m['dim']} vs spec {spec.dim}")
+    else:
+        off, d = lane_slice
+        if d != spec.dim or off < 0 or off + d > m["dim"]:
+            raise ValueError(f"lane block {lane_slice} does not fit ckpt dim {m['dim']} "
+                             f"into spec dim {spec.dim}")
     if m["optimizer"]["kind"] != spec.optimizer.kind:
         raise ValueError(
             f"optimizer mismatch: ckpt {m['optimizer']['kind']} vs {spec.optimizer.kind}"
@@ -497,16 +565,21 @@ def check_manifest(spec: TableSpec, m: dict) -> None:
 def restore_shards(
     spec: TableSpec, path: str, num_shards: int = 1, batch: int = _RESTORE_BATCH,
     device="cuda", only_ids: Optional[set] = None,
+    lane_slice: Optional[Tuple[int, int]] = None,
 ) -> Tuple[List[Optional[TableShard]], dict]:
     """Rebuild `num_shards` fresh shards on `device` from a checkpoint written
     with any shard count: every saved row is rehashed to its owner shard and
     bulk-inserted. `only_ids` builds only those shards (a process's own in a
-    multi-process restore); the others are None. Raises if any row finds no
-    slot (the target capacity is too small), never truncating silently. The
-    saved lifetime counters land on shard 0; the restore's own inserts are
-    not history."""
+    multi-process restore); the others are None. `lane_slice=(off, d)`
+    restores lanes [off, off + d) of every saved row into a dim-d spec (one
+    column block of a 2-D layout; full-dim optimizer planes are sliced the
+    same way, rowwise ones are whole). Raises if any row finds no slot (the
+    target capacity is too small), never truncating silently. The saved
+    lifetime counters land on shard 0, the restore's own inserts not being
+    history; a lane block keeps its own counts, as in the reference."""
     m = read_manifest(path)
-    check_manifest(spec, m)
+    check_manifest(spec, m, lane_slice)
+    lanes = slice(None) if lane_slice is None else slice(lane_slice[0], sum(lane_slice))
     if m.get("counts"):
         total = max(1, sum(m["counts"]))
         b = 1024
@@ -527,13 +600,13 @@ def restore_shards(
         owner = hashing.owner_of(torch.from_numpy(hi_np), torch.from_numpy(lo_np),
                                  num_shards).numpy()
         cols = {
-            "hi": hi_np, "lo": lo_np, "values": data["values"], "freq": data["freq"],
+            "hi": hi_np, "lo": lo_np, "values": data["values"][:, lanes], "freq": data["freq"],
             "last": data["last"],
         }
         if "accum" in data:
             cols["accum"] = data["accum"]
         for j in range(n_full):
-            cols[f"full{j}"] = data[f"full{j}"]
+            cols[f"full{j}"] = data[f"full{j}"][:, lanes]
         if len(wanted) < num_shards:  # only this process's rows go to the device
             mine = np.isin(owner, wanted)
             owner = owner[mine]
@@ -569,7 +642,7 @@ def restore_shards(
                         "rows; raise table.capacity (or set table.grow_at_load)"
                     )
     saved = m.get("counters")
-    if saved is not None:
+    if saved is not None and lane_slice is None:
         for s in wanted:
             shard = shards[s]
             shard.counters.zero_()

@@ -22,7 +22,11 @@ through torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
 MASTER_PORT), each reads its own `batch_size / S` rows of every global
 batch (the synthetic stream at seed + rank, Criteo lines i % S == rank),
 and only rank 0 prints. A world of one takes the single-device path, as the
-reference does on one device.
+reference does on one device. `train --distributed --col-shards C` lays a
+world of S * C ranks out as an S x C grid (`parallel/colsharded.py`): the C
+ranks of a row shard read the same rows and hold its column blocks. A
+`tables:` group config with --distributed row-shards every member
+(`group_train.ShardedGroupTrainer`) for train, serve and eval.
 """
 
 from __future__ import annotations
@@ -209,9 +213,10 @@ def _make_spill(args, table_cfg, rank: Optional[int] = None):
     return make_backend(args.spill, width=width, **kwargs)
 
 
-def _make_group_spill(args, tables: dict):
+def _make_group_spill(args, tables: dict, rank: Optional[int] = None):
     """A spill backend a member of a `tables:` group, host or disk only: one
-    redis keyspace cannot hold the members' different row widths."""
+    redis keyspace cannot hold the members' different row widths. `rank`
+    (a rank of a world of more than one) gives each rank its own disk logs."""
     if not getattr(args, "spill", None) or args.spill == "none":
         return None
     if args.spill == "redis":
@@ -226,6 +231,8 @@ def _make_group_spill(args, tables: dict):
         kwargs = {}
         if args.spill == "disk":
             kwargs["path"] = f"{args.spill_path or _default_spill_path()}.{name}"
+            if rank is not None:
+                kwargs["path"] += f".rank{rank}"
         width = SpillCodec(TableSpec.from_config(cfg)).width
         out[name] = make_backend(args.spill, width=width, **kwargs)
     return out
@@ -385,57 +392,86 @@ def _profiled(run_cfg, dev):
 
 # --- train ---------------------------------------------------------------------
 
-def _train_group(args, run_cfg, tables, feature_map, model_cfg) -> int:
+def _train_group(args, run_cfg, tables, feature_map, model_cfg, mesh=None) -> int:
     """Heterogeneous multi-table training behind the same `train` front end,
-    selected by a `tables:` YAML section, on one device. --spill host|disk
-    gives every member its own backend; --maintenance-every runs each
-    member's eviction tick."""
-    from meepoembedding_tpu_torch.group_train import GroupTrainer
+    selected by a `tables:` YAML section: on one device, or with `mesh` (a
+    world of S > 1) a ShardedGroupTrainer fed this rank's rows, rank 0
+    printing. --spill host|disk gives every member its own backend (a rank
+    its own); --maintenance-every runs each member's eviction tick."""
+    from meepoembedding_tpu_torch.group_train import GroupTrainer, ShardedGroupTrainer
     from meepoembedding_tpu_torch.metrics import JsonlLogger, Meter
 
-    spill = _make_group_spill(args, tables)
-    stream = make_train_stream(args.data, run_cfg, model_cfg, 0, 1, bag_len=args.bag_len)
-    tr = GroupTrainer(run_cfg, tables, feature_map, model_cfg, spill=spill, device=args.device)
+    S, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    spill = _make_group_spill(args, tables, rank if mesh is not None else None)
+    stream = make_train_stream(args.data, _rank_run_cfg(run_cfg, S), model_cfg, rank, S,
+                               bag_len=args.bag_len)
+    if mesh is None:
+        tr = GroupTrainer(run_cfg, tables, feature_map, model_cfg, spill=spill,
+                          device=args.device)
+    else:
+        tr = ShardedGroupTrainer(run_cfg, tables, feature_map, model_cfg, mesh=mesh,
+                                 spill=spill)
     if args.restore:
         tr.load_checkpoint(args.restore)
-    logger = JsonlLogger(echo=True)
+    logger = JsonlLogger(echo=rank == 0)
     loss_m = Meter()
     t0 = time.perf_counter()
     examples = 0
     for i, batch in enumerate(stream.batches(run_cfg.steps)):
-        loss_m.update(tr.train_step(batch)["loss"])
-        examples += len(batch["label"])
+        out = tr.train_step(batch)
+        if out["loss"] is not None:  # the sharded trainer lags pipeline_depth steps
+            loss_m.update(out["loss"])
+        examples += len(batch["label"]) * S
         if (i + 1) % run_cfg.log_every == 0:
-            logger.log(step=tr.step, loss=loss_m.mean, auc=tr.auc.compute(),
+            auc = tr.auc.compute() if mesh is None else _global_auc(tr.auc, mesh)
+            logger.log(step=tr.step, loss=loss_m.mean, auc=auc,
                        examples_per_sec=examples / (time.perf_counter() - t0),
                        rows={n: c["rows"] for n, c in tr.counters().items()})
         if args.maintenance_every and (i + 1) % args.maintenance_every == 0:
             tr.maintenance()
         if args.ckpt_dir and args.ckpt_every and (i + 1) % args.ckpt_every == 0:
             tr.save_checkpoint(args.ckpt_dir)
+    if mesh is not None:
+        for _s, loss in tr.flush():
+            loss_m.update(loss)
     if args.ckpt_dir:
         tr.save_checkpoint(args.ckpt_dir)
-    print(json.dumps({"final_auc": tr.auc.compute(), "steps": tr.step}))
+    auc = tr.auc.compute() if mesh is None else _global_auc(tr.auc, mesh)
+    if rank == 0:
+        print(json.dumps({"final_auc": auc, "steps": tr.step}))
     return 0
 
 
-def _train_sharded(args, run_cfg, table_cfg, model_cfg, mesh) -> None:
-    """`train --distributed` on this rank of a world of S > 1: a
-    ShardedTrainer fed this rank's rows; rank 0 prints."""
+def _train_sharded(args, run_cfg, table_cfg, model_cfg, mesh, mesh2d=None) -> None:
+    """`train --distributed` on this rank of a world of more than one: a
+    ShardedTrainer fed this rank's rows, or (--col-shards C) a
+    ColShardedTrainer on the S x C grid `mesh2d`, whose row mesh `mesh`
+    is: the C ranks of a row shard read the same rows, its column-0 rank
+    holds the cold tier, and the metrics come from column 0's ranks. World
+    rank 0 prints."""
     from meepoembedding_tpu_torch.metrics import JsonlLogger, Meter, StreamingAUC
+    from meepoembedding_tpu_torch.parallel.colsharded import ColShardedTrainer
     from meepoembedding_tpu_torch.parallel.trainer import ShardedTrainer
 
     S, rank = mesh.size, mesh.rank
-    if run_cfg.mesh_shape and int(np.prod(run_cfg.mesh_shape)) != S:
+    if mesh2d is None and run_cfg.mesh_shape and int(np.prod(run_cfg.mesh_shape)) != S:
         raise ValueError(f"run.mesh_shape={run_cfg.mesh_shape} needs a world of "
                          f"{int(np.prod(run_cfg.mesh_shape))} ranks; torchrun started {S}")
     rank_cfg = _rank_run_cfg(run_cfg, S)
     stream = make_train_stream(args.data, rank_cfg, model_cfg, rank, S, bag_len=args.bag_len)
-    tr = ShardedTrainer(run_cfg, table_cfg, model_cfg, mesh=mesh,
-                        spill=_make_spill(args, table_cfg, rank))
+    if mesh2d is None:
+        lead = rank == 0
+        tr = ShardedTrainer(run_cfg, table_cfg, model_cfg, mesh=mesh,
+                            spill=_make_spill(args, table_cfg, rank))
+    else:
+        lead = mesh2d.world.rank == 0
+        spill = (_make_spill(args, table_cfg, mesh2d.world.rank) if mesh2d.col.rank == 0
+                 else None)
+        tr = ColShardedTrainer(run_cfg, table_cfg, model_cfg, mesh2d, spill=spill)
     if args.restore:
         tr.load_checkpoint(args.restore)
-    logger = JsonlLogger(echo=rank == 0)
+    # each column's row mesh merges its own metrics: column 0's reach rank 0
+    logger = JsonlLogger(echo=lead)
     loss_m = Meter()
     t0 = time.perf_counter()
     examples = 0
@@ -472,7 +508,7 @@ def _train_sharded(args, run_cfg, table_cfg, model_cfg, mesh) -> None:
     if args.ckpt_dir:
         tr.save_checkpoint(args.ckpt_dir)
     final = {"final_auc": _global_auc(tr.auc, mesh), "steps": tr.step}
-    if rank == 0:
+    if lead:
         print(json.dumps(final))
 
 
@@ -507,15 +543,21 @@ def cmd_train(args) -> int:
     grp = load_group_configs(args.config, args.set)
     if grp is not None:
         if _sharded(args):
-            raise NotImplementedError("train of a `tables:` group config with --distributed "
-                                      "over more than one rank "
-                                      + NOT_PORTED.format("parallel/ for groups"))
+            with _joined_world(args) as mesh, _profiled(grp[0], mesh.device):
+                return _train_group(args, *grp, mesh=mesh)
         return _train_group(args, *grp)
-    if args.distributed and args.col_shards > 1:
-        raise NotImplementedError("train --distributed --col-shards N > 1 (the row x dim "
-                                  "layout) " + NOT_PORTED.format("colsharded"))
     run_cfg, table_cfg, model_cfg = load_configs(args.config, args.set)
     model_cfg = dataclasses.replace(model_cfg, embedding_dim=table_cfg.dim)
+    if args.distributed and args.col_shards > 1:
+        from meepoembedding_tpu_torch.parallel.mesh import make_mesh2d
+
+        C, world = args.col_shards, _world()[1]
+        if world % C:
+            raise SystemExit(f"--col-shards {C} must divide the world of {world} ranks")
+        with _joined_world(args) as mesh, _profiled(run_cfg, mesh.device):
+            mesh2d = make_mesh2d(world // C, C, device=mesh.device)
+            _train_sharded(args, run_cfg, table_cfg, model_cfg, mesh2d.row, mesh2d)
+        return 0
     if _sharded(args):
         with _joined_world(args) as mesh, _profiled(run_cfg, mesh.device):
             _train_sharded(args, run_cfg, table_cfg, model_cfg, mesh)
@@ -567,7 +609,8 @@ def _bench_table(args, update: bool) -> int:
         for i in range(0, n_live, pf):
             hi, lo = on_device((np.arange(i, i + pf, dtype=np.int64) % n_live) * mult)
             init = hashing.default_rows(hi, lo, spec.dim, spec.initializer_scale, spec.dtype,
-                                        kind=spec.initializer)
+                                        kind=spec.initializer,
+                                        lane_offset=spec.init_lane_offset)
             table_ops.insert_rows(spec_prefill, shard, hi, lo, init, hashing.is_valid(hi, lo), 0)
 
         ucap = max(1024, batch // 2)  # ~35% unique under the zipf stream
@@ -661,13 +704,20 @@ def _serve_http(svc, args, retrieval=None) -> int:
 
 
 def _serve_group(args, run_cfg, tables, feature_map, model_cfg) -> int:
-    """Scoring from a `tables:` group checkpoint on one device: --http
-    through GroupScoringService, else batches through the group eval step
-    (probe-only lookups: unknown ids score with zero embeddings)."""
+    """Scoring from a `tables:` group checkpoint: --http through
+    GroupScoringService on one device, else batches through the group eval
+    step (probe-only lookups: unknown ids score with zero embeddings), over
+    a world of S > 1 with --distributed (members row-sharded, each rank
+    scoring its rows, rank 0 printing every rank's scores)."""
     if _sharded(args):
-        raise NotImplementedError("serve of a `tables:` group checkpoint with --distributed "
-                                  "over more than one rank "
-                                  + NOT_PORTED.format("parallel/ for groups"))
+        if args.http:
+            raise NotImplementedError(
+                "serve --http of a `tables:` group checkpoint with --distributed over more "
+                "than one rank (one HTTP front whose requests every rank scores in lockstep) "
+                + NOT_PORTED.format("HTTP serving over S ranks"))
+        with _joined_world(args) as mesh:
+            _serve_group_sharded(args, run_cfg, tables, feature_map, model_cfg, mesh)
+        return 0
     if args.http:
         from meepoembedding_tpu_torch.serving_group import GroupScoringService
 
@@ -688,6 +738,29 @@ def _serve_group(args, run_cfg, tables, feature_map, model_cfg) -> int:
         _print_scores(i, p, args.emit)
     _serve_latency_line(lat_ms, run_cfg.batch_size)
     return 0
+
+
+def _serve_group_sharded(args, run_cfg, tables, feature_map, model_cfg, mesh) -> None:
+    """Batch scoring of a group checkpoint over a world of S > 1: the
+    members restore row-sharded, each rank scores its rows of a batch, and
+    rank 0 prints the batch's scores, rank after rank."""
+    from meepoembedding_tpu_torch.group_train import ShardedGroupTrainer
+
+    S, rank = mesh.size, mesh.rank
+    stream = make_train_stream(args.data, _rank_run_cfg(run_cfg, S), model_cfg, rank, S,
+                               bag_len=args.bag_len)
+    tr = ShardedGroupTrainer(run_cfg, tables, feature_map, model_cfg, mesh=mesh)
+    tr.load_checkpoint(args.ckpt)
+    lat_ms = []
+    for i, batch in enumerate(_lockstep(stream.batches(run_cfg.steps), mesh)):
+        t0 = time.perf_counter()
+        p = torch.sigmoid(torch.from_numpy(_gather(tr.eval_step(batch)["logits"], mesh)))
+        p = p.numpy()
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+        if rank == 0:
+            _print_scores(i, p, args.emit)
+    if rank == 0:
+        _serve_latency_line(lat_ms, run_cfg.batch_size)
 
 
 def _serve_sharded(args, run_cfg, table_cfg, model_cfg, mesh) -> None:
@@ -853,9 +926,11 @@ def cmd_eval(args) -> int:
         return 0
     if grp is not None:
         if _sharded(args):
-            raise NotImplementedError("eval of a `tables:` group checkpoint with --distributed "
-                                      "over more than one rank "
-                                      + NOT_PORTED.format("parallel/ for groups"))
+            with _joined_world(args) as mesh:
+                out = _eval_sharded(args, run_cfg, table_cfg, model_cfg, mesh, grp)
+            if mesh.rank == 0:
+                print(json.dumps(out))
+            return 0
         from meepoembedding_tpu_torch.group_train import GroupTrainer
 
         tr = GroupTrainer(*grp, device=dev)
@@ -874,12 +949,17 @@ def cmd_eval(args) -> int:
     return 0
 
 
-def _eval_sharded(args, run_cfg, table_cfg, model_cfg, mesh) -> dict:
+def _eval_sharded(args, run_cfg, table_cfg, model_cfg, mesh, grp=None) -> dict:
     """`eval --distributed` on this rank of a world of S > 1: the
-    checkpoint restored row-sharded, this rank's rows of every batch."""
+    checkpoint (a group's, given `grp`) restored row-sharded, this rank's
+    rows of every batch."""
+    from meepoembedding_tpu_torch.group_train import ShardedGroupTrainer
     from meepoembedding_tpu_torch.parallel.trainer import ShardedTrainer
 
-    tr = ShardedTrainer(run_cfg, table_cfg, model_cfg, mesh=mesh)
+    if grp is None:
+        tr = ShardedTrainer(run_cfg, table_cfg, model_cfg, mesh=mesh)
+    else:
+        tr = ShardedGroupTrainer(*grp, mesh=mesh)
     tr.load_checkpoint(args.ckpt)
     batches = _held_out_batches(args, _rank_run_cfg(run_cfg, mesh.size), model_cfg, mesh.rank,
                             mesh.size)
@@ -1046,7 +1126,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--restore", help="restore from this checkpoint before training")
     t.add_argument("--col-shards", type=int, default=1,
                    help="column (dim) shards for 2-D row x dim table parallelism "
-                        "(not ported: N > 1 with --distributed raises)")
+                        "(requires --distributed; N divides the world and dim)")
     t.set_defaults(fn=cmd_train)
 
     for name, fn in (("bench-lookup", cmd_bench_lookup), ("bench-update", cmd_bench_update)):

@@ -33,8 +33,12 @@ evict while a large one doubles by rehash. Checkpoints keep the reference's
 layout: group.json and one checkpoint a member in table-<name>/, the dense
 tower and its Adam state riding the first member.
 
-`ShardedGroupTrainer` (the reference's row-sharded group trainer) is not
-ported: it waits for the distributed layer (ROADMAP, queue 1, "parallel/").
+`ShardedGroupTrainer` (`group_train.py:542-1213` of the reference) row-
+shards every member over one mesh of S ranks (`parallel/`): each member
+runs its own dedup, `sharded_table.exchange_lookup` (dense, or ragged with
+the owner-major dedup under `run.a2a_ragged`) and `exchange_apply_grads`
+around one head, whose gradients are summed over the ranks. One process a
+rank, each passing its own `batch_size / S` rows, in lockstep.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from meepoembedding_tpu_torch.table.layout import (
     HITS,
     INSERTS,
     MISSES,
+    PROMOTES,
     TableSpec,
     alloc_shard,
     resolve_device,
@@ -140,6 +145,9 @@ class GroupTrainer:
     Adam from zero. `spill` maps member names to `KVBackend`s that
     `maintenance()` spills their evicted rows to and promotes from."""
 
+    S = 1  # shards a member, and this process's shard (`ShardedGroupTrainer`)
+    shard_id = 0
+
     def __init__(self, run_cfg: RunConfig, table_cfgs: Dict[str, TableConfig],
                  feature_map: Sequence[str], model_cfg: ModelConfig,
                  spill: Optional[Dict[str, object]] = None, device="cuda",
@@ -161,7 +169,8 @@ class GroupTrainer:
         self.names = sorted(table_cfgs)
         self.feature_map = list(feature_map)
         self.table_cfgs = dict(table_cfgs)  # growth rebuilds specs from these
-        self.specs = {n: TableSpec.from_config(table_cfgs[n], num_shards=1) for n in self.names}
+        self.specs = {n: TableSpec.from_config(table_cfgs[n], num_shards=self.S)
+                      for n in self.names}
         self.shards = {n: alloc_shard(self.specs[n], self.device) for n in self.names}
         self.spill = dict(spill or {})
         self._promoters: Dict[str, object] = {}
@@ -207,11 +216,11 @@ class GroupTrainer:
         hi, lo = hashing.split_ids_t(ids)
         return ids.shape, dense, label, hi, lo
 
-    def _member_ids(self, n: str, hi, lo, caps):
+    def _member_ids(self, n: str, hi, lo, caps, owner_major: int = 0):
         """A member's columns, deduplicated together -> (its hi ids, bag validity
         or None, the `Unique`)."""
         h, l = hi.index_select(1, self._cols[n]), lo.index_select(1, self._cols[n])
-        uniq = dedup.unique_pairs(h.reshape(-1), l.reshape(-1), caps[n])
+        uniq = dedup.unique_pairs(h.reshape(-1), l.reshape(-1), caps[n], owner_major=owner_major)
         bag_valid = hashing.is_valid(h, l) if hi.dim() == 3 else None
         return h, bag_valid, uniq
 
@@ -279,24 +288,28 @@ class GroupTrainer:
         return {"loss": float(bce_with_logits(logits, label)), "logits": logits}
 
     # --- growth and maintenance, a member at a time -------------------------------
+    def _total(self, x: int) -> int:
+        """A count of this process's shards over all of them."""
+        return x
+
     def _maybe_grow(self, ids) -> None:
         """Per-member online growth. A member's live count grows by at most
-        its columns' id count a step, so a host-side upper bound gates the
-        device read of its count, as in the reference: no read on steps far
-        from the growth point."""
+        its columns' id count a step (over every shard), so a host-side
+        upper bound gates the device read of its count, as in the
+        reference: no read on steps far from the growth point."""
         shape = tuple(ids.shape)
         L = shape[2] if len(shape) == 3 else 1
         for n in self.names:
             cfg = self.table_cfgs[n]
             if cfg.grow_at_load is None:
                 continue
-            incoming = shape[0] * L * len(self.table_features[n])
+            incoming = shape[0] * self.S * L * len(self.table_features[n])
             self._live_upper[n] += incoming
-            if self._live_upper[n] <= cfg.grow_at_load * self.specs[n].capacity:
+            if self._live_upper[n] <= cfg.grow_at_load * self.specs[n].capacity * self.S:
                 continue
             while True:
-                live = int(self.shards[n].cnt.sum())
-                if live + incoming <= cfg.grow_at_load * self.specs[n].capacity:
+                live = self._total(int(self.shards[n].cnt.sum()))
+                if live + incoming <= cfg.grow_at_load * self.specs[n].capacity * self.S:
                     self._live_upper[n] = live + incoming
                     break
                 self._grow_table(n)
@@ -307,8 +320,8 @@ class GroupTrainer:
 
         old_spec = self.specs[name]
         self.table_cfgs[name] = dataclasses.replace(self.table_cfgs[name],
-                                                    capacity=old_spec.capacity * 2)
-        self.specs[name] = TableSpec.from_config(self.table_cfgs[name], num_shards=1)
+                                                    capacity=old_spec.capacity * self.S * 2)
+        self.specs[name] = TableSpec.from_config(self.table_cfgs[name], num_shards=self.S)
         self.shards[name] = regrow_shard(old_spec, self.specs[name], self.shards[name],
                                          self.step)
 
@@ -362,7 +375,7 @@ class GroupTrainer:
 
                 spill_export(SpillCodec(spec), self.spill[n], export)
                 self.spilled_rows[n] += cnt
-            out[n] = {"evicted": cnt, "promoted": promoted.get(n, 0)}
+            out[n] = {"evicted": self._total(cnt), "promoted": promoted.get(n, 0)}
         return out
 
     def remove(self, name: str, ids64) -> int:
@@ -421,17 +434,263 @@ class GroupTrainer:
             m = checkpoint.read_manifest(sub)
             total = sum(m.get("counts", [0]))
             cfg, spec = self.table_cfgs[n], self.specs[n]
-            while cfg.grow_at_load is not None and total > cfg.grow_at_load * spec.capacity:
-                cfg = dataclasses.replace(cfg, capacity=spec.capacity * 2)
-                spec = TableSpec.from_config(cfg, num_shards=1)
+            while (cfg.grow_at_load is not None
+                   and total > cfg.grow_at_load * spec.capacity * self.S):
+                cfg = dataclasses.replace(cfg, capacity=spec.capacity * self.S * 2)
+                spec = TableSpec.from_config(cfg, num_shards=self.S)
             checkpoint.check_manifest(spec, m)  # before the old planes go
             self.shards[n] = None
-            shards, m = checkpoint.restore_shards(spec, sub, 1, device=self.device)
-            self.table_cfgs[n], self.specs[n], self.shards[n] = cfg, spec, shards[0]
+            shards, m = checkpoint.restore_shards(spec, sub, self.S, device=self.device,
+                                                  only_ids={self.shard_id})
+            self.table_cfgs[n], self.specs[n] = cfg, spec
+            self.shards[n] = shards[self.shard_id]
             self._live_upper[n] = total
             if i == 0 and "params" in m.get("dense", []):
                 from_jax_params(self.head, checkpoint.load_dense(sub, "params"))
                 self.opt_state = from_jax_adam_state(checkpoint.load_dense(sub, "opt_state"),
                                                      self.head, self.device)
         self.step = manifest["step"]
+        return manifest
+
+
+class ShardedGroupTrainer(GroupTrainer):
+    """`GroupTrainer` with every member row-sharded over `mesh` (default:
+    the world on `device`). A step, for each member in name order: its
+    dedup, the exchange to the members' owners and the rows back; then the
+    head on this rank's rows with its loss divided by S; each member's
+    gradients back to their owners; one all-reduce of the head's gradients
+    with the loss and the route drops; clip, the LR schedule and dense Adam.
+
+    As `ShardedTrainer`: `pipeline_depth` lags the loss (`flush()` retires
+    the rest), route drops double `a2a_factor` up to S, and `spill` is this
+    rank's cold tier a member, fed the owner-side misses and drained at
+    `maintenance()`. Counters and `evicted` are global; `promoted` is too."""
+
+    def __init__(self, run_cfg: RunConfig, table_cfgs: Dict[str, TableConfig],
+                 feature_map: Sequence[str], model_cfg: ModelConfig, mesh=None,
+                 spill: Optional[Dict[str, object]] = None, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        from collections import deque
+
+        from meepoembedding_tpu_torch.parallel.mesh import make_mesh
+
+        self.mesh = mesh or make_mesh(device=device)
+        self.S, self.shard_id = self.mesh.size, self.mesh.rank
+        if run_cfg.batch_size % self.S:
+            raise ValueError(f"global batch {run_cfg.batch_size} does not split over "
+                             f"{self.S} ranks")
+        super().__init__(run_cfg, table_cfgs, feature_map, model_cfg, spill=spill,
+                         device=self.mesh.device, generator=generator)
+        self.a2a_factor = run_cfg.a2a_factor
+        self.a2a_ragged = run_cfg.a2a_ragged
+        self.pipeline_depth = max(0, run_cfg.pipeline_depth)
+        self._pending: deque = deque()
+        self._last_loss = self._last_step = None
+        self._resized_at = -1
+        self.eval_route_drops = 0
+        self.promote_respills = {n: 0 for n in self.names}
+
+    def _total(self, x: int) -> int:
+        from meepoembedding_tpu_torch.parallel.trainer import sum_ints
+
+        return int(sum_ints(torch.tensor(x, device=self.device), self.mesh))
+
+    def _exchange_caps(self, caps: Dict[str, int]) -> Dict[str, int]:
+        """The exchange's capacity a member at its dedup capacity."""
+        from meepoembedding_tpu_torch.parallel import ragged as rg
+        from meepoembedding_tpu_torch.parallel import sharded_table as st
+
+        f = rg.ragged_recv_cap if self.a2a_ragged else st.a2a_capacity
+        return {n: f(c, self.S, self.a2a_factor) for n, c in caps.items()}
+
+    def _lookups(self, batch: dict, train: bool):
+        """Every member's dedup and exchange of this rank's rows ->
+        (dense, label, the pooled features a member, the leaves of the
+        rows, their ctxs, the exchange caps, the route drops tensor)."""
+        from meepoembedding_tpu_torch.parallel import sharded_table as st
+
+        shape, dense, label, hi, lo = self._inputs(batch)
+        caps = self._caps(shape)
+        xcaps = self._exchange_caps(caps)
+        omaj = self.S if self.a2a_ragged and st.exchanging(self.mesh) else 0
+        per_table, leaves, ctxs, drops = {}, [], {}, []
+        for n in self.names:
+            spec = self.specs[n]
+            h, bag_valid, uniq = self._member_ids(n, hi, lo, caps, owner_major=omaj)
+            emb_u, ctx = st.exchange_lookup(spec, self.shards[n], uniq.hi, uniq.lo, uniq.valid,
+                                            self.step if train else 0, self.mesh, xcaps[n],
+                                            train=train, ragged=self.a2a_ragged,
+                                            owner_sorted=bool(omaj))
+            rows_u = emb_u.detach().requires_grad_(train)
+            flat = dedup.GatherRows.apply(rows_u, uniq.inverse, uniq.order, uniq.sorted_ids)
+            per_table[n] = pooling.pool_or_reshape(flat, h.shape, bag_valid, spec.dim,
+                                                   self.model_cfg.combiner)
+            leaves.append(rows_u)
+            ctxs[n] = ctx
+            drops.append(ctx.n_drop)
+        return dense, label, per_table, leaves, ctxs, xcaps, torch.stack(drops).sum()
+
+    def train_step(self, batch: dict) -> dict:
+        """One step on this rank's rows. Returns {"loss": the global loss of
+        step `step - pipeline_depth` (None while the pipeline fills),
+        "retired_step", "in_flight"}."""
+        from meepoembedding_tpu_torch.parallel import sharded_table as st
+        from meepoembedding_tpu_torch.parallel.trainer import sum_over_ranks
+
+        rc = self.run_cfg
+        self._maybe_grow(batch["ids"])
+        dense, label, per_table, leaves, ctxs, xcaps, drops = self._lookups(batch, True)
+        logits = self._logits(dense, per_table)
+        # 1/S: the owners' sums and the all-reduce below give the global mean
+        loss = bce_with_logits(logits, label) / self.S
+        grads = torch.autograd.grad(loss, leaves + self.params)
+        with torch.no_grad():
+            for n, g in zip(self.names, grads):
+                st.exchange_apply_grads(self.specs[n], self.shards[n], ctxs[n], g, self.mesh,
+                                        xcaps[n])
+            *g_dense, loss, drops = sum_over_ranks([*grads[len(self.names):], loss, drops],
+                                                   self.mesh)
+            if rc.grad_clip_norm is not None:
+                g_dense = optim.clip_by_global_norm(g_dense, rc.grad_clip_norm)
+            lr = optim.schedule_lr(rc.lr_schedule, rc.dense_learning_rate, self.step, rc.steps,
+                                   rc.warmup_steps)
+            self.opt_state = optim.dense_adam_update(self.params, g_dense, self.opt_state, lr)
+        self.step += 1
+        self._pending.append({
+            "step": self.step - 1, "loss": loss, "drops": drops, "logits": logits.detach(),
+            "labels": label,
+            "miss": {n: (ctxs[n].miss_hi, ctxs[n].miss_lo, ctxs[n].miss)
+                     for n in self._promoters}})
+        while len(self._pending) > self.pipeline_depth:
+            self._retire(self._pending.popleft())
+        return {"loss": self._last_loss, "retired_step": self._last_step,
+                "in_flight": len(self._pending)}
+
+    def _retire(self, ent: dict) -> None:
+        """Read one finished step on the host: feed the promoters, resize the
+        exchange after route drops, update the AUC."""
+        for n, prm in self._promoters.items():
+            prm.feed(*ent["miss"][n])
+        drops = int(ent["drops"])
+        if drops and ent["step"] >= self._resized_at:
+            old = self.a2a_factor
+            self.a2a_factor = min(self.a2a_factor * 2.0, float(self.S))
+            logging.getLogger(__name__).warning(
+                "group a2a exchange overflowed at step %d (%d ids); a2a_factor %g -> %g",
+                ent["step"], drops, old, self.a2a_factor)
+            if self.a2a_factor != old:
+                self._resized_at = self.step
+        self.last_logits = ent["logits"]
+        self.auc.update(ent["logits"], ent["labels"])
+        self._last_loss = float(ent["loss"])
+        self._last_step = ent["step"]
+
+    def flush(self) -> list:
+        """Retire every step in flight; returns their (step, loss)."""
+        out = []
+        while self._pending:
+            self._retire(self._pending.popleft())
+            out.append((self._last_step, self._last_loss))
+        return out
+
+    @torch.no_grad()
+    def eval_step(self, batch: dict) -> dict:
+        """Probe-only scoring of this rank's labelled rows. Returns {"loss":
+        the mean over ranks, "logits": this rank's, "route_drops": global}."""
+        from meepoembedding_tpu_torch.parallel.trainer import sum_over_ranks
+
+        dense, label, per_table, _, _, _, drops = self._lookups(batch, False)
+        logits = self._logits(dense, per_table)
+        loss, drops = sum_over_ranks([bce_with_logits(logits, label) / self.S, drops],
+                                     self.mesh)
+        drops = int(drops)
+        self.eval_route_drops += drops
+        return {"loss": float(loss), "logits": logits, "route_drops": drops}
+
+    # --- maintenance and removal ------------------------------------------------
+    def _apply_promotions(self) -> Dict[str, int]:
+        """Each member's staged promotions into this rank's shard
+        (`trainer.drain_promotions`); the inserted counts are global."""
+        from meepoembedding_tpu_torch.parallel.trainer import drain_promotions
+
+        out = {}
+        for n, prm in self._promoters.items():
+            pst = drain_promotions(self.specs[n], self.shards[n], prm, self.step)
+            g = self._total(pst.inserted)
+            self._live_upper[n] += g
+            self.promote_respills[n] += pst.respilled
+            out[n] = g
+        return out
+
+    def maintenance(self) -> Dict[str, dict]:
+        self.flush()  # the steps in flight feed the promoters first
+        return super().maintenance()
+
+    def remove(self, name: str, ids64) -> int:
+        """Erase keys of one member on their owners (`exchange_erase`). Every
+        rank passes the same ids; returns the global removed count."""
+        from meepoembedding_tpu_torch.config import LANES
+        from meepoembedding_tpu_torch.parallel import sharded_table as st
+
+        self.flush()
+        uniq = np.unique(np.asarray(ids64, np.int64))
+        n = max(LANES, 1 << max(0, (len(uniq) - 1).bit_length()))
+        ids = np.full((n,), hashing.EMPTY_ID, np.int64)
+        ids[:len(uniq)] = uniq
+        hi, lo = hashing.split_ids_t(torch.from_numpy(ids).to(self.device))
+        return int(st.exchange_erase(self.specs[name], self.shards[name], hi, lo,
+                                     hashing.is_valid(hi, lo), self.mesh,
+                                     st.a2a_capacity(n, self.S, self.a2a_factor)))
+
+    def counters(self) -> Dict[str, dict]:
+        """Each member's counters summed over the ranks; `capacity` is the
+        member's over every shard."""
+        from meepoembedding_tpu_torch.parallel.trainer import sum_ints
+
+        self.flush()
+        host = [[self.spilled_rows[n], self.promote_respills[n]] for n in self.names]
+        flat = torch.cat([torch.cat([self.shards[n].counters.to(torch.int64),
+                                     self.shards[n].cnt.sum().reshape(1).to(torch.int64),
+                                     torch.tensor(host[i], device=self.device)])
+                          for i, n in enumerate(self.names)])
+        c = sum_ints(flat, self.mesh).cpu().numpy().reshape(len(self.names), -1)
+        out = {}
+        for i, n in enumerate(self.names):
+            ci = c[i]
+            out[n] = {
+                "hits": int(ci[HITS]), "misses": int(ci[MISSES]), "inserts": int(ci[INSERTS]),
+                "evictions": int(ci[EVICTIONS]), "denied": int(ci[DENIED]),
+                "spills": int(ci[-2]), "promotes": int(ci[PROMOTES]),
+                "promote_respills": int(ci[-1]), "rows": int(ci[-3]),
+                "capacity": self.specs[n].capacity * self.S, "drops": int(ci[DROPS]),
+            }
+        return out
+
+    # --- checkpoints ----------------------------------------------------------------
+    def save_checkpoint(self, path: str) -> dict:
+        """The reference's group layout over the multi-process protocol: each
+        member's checkpoint written by every rank (its shard), the head on
+        the first member by rank 0, then group.json by rank 0. Restorable at
+        any S and by `GroupTrainer`."""
+        from meepoembedding_tpu_torch import checkpoint
+        from meepoembedding_tpu_torch.parallel import multihost
+
+        self.flush()
+        coord = self.shard_id == 0
+        os.makedirs(path, exist_ok=True)
+        manifest = {"tables": {}, "feature_map": self.feature_map, "step": self.step,
+                    "num_shards": self.S}
+        for i, n in enumerate(self.names):
+            dense = None
+            if i == 0 and coord:  # the dense tower rides the first member
+                dense = {"params": to_jax_params(self.head),
+                         "opt_state": to_jax_adam_state(self.opt_state, self.head)}
+            checkpoint.save_sharded(
+                os.path.join(path, f"table-{n}"), self.specs[n], {self.shard_id: self.shards[n]},
+                self.S, self.step, dense=dense, is_coordinator=coord,
+                barrier=lambda name="": multihost.barrier(name, self.mesh))
+            manifest["tables"][n] = f"table-{n}"
+        if coord:
+            write_group_json(path, manifest)
+        multihost.barrier("group-ckpt-committed", self.mesh)
         return manifest

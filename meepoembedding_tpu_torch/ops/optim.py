@@ -37,13 +37,19 @@ from meepoembedding_tpu_torch.table.table_ops import (
 )
 
 
-def apply_sparse_grads_ctx(spec: TableSpec, shard: TableShard, ctx, grad: torch.Tensor) -> None:
+def apply_sparse_grads_ctx(spec: TableSpec, shard: TableShard, ctx, grad: torch.Tensor,
+                           g2_mean=None) -> None:
     """The training step's update after `table_ops.lookup_train`, in place:
     the values plane receives the fresh rows' init plus the optimizer delta
     in ONE `row_merge_add`, and fresh rows' accumulator init rides the
     accumulator add. `grad` is [U, dim], one row per unique slot. sgd and
     rowwise_adagrad take this path; the other kinds write the inits first
-    and take `apply_sparse_grads`."""
+    and take `apply_sparse_grads`.
+
+    `g2_mean` maps the raw per-row sum of squared grads [U] to the rowwise
+    accumulator's increment (default: / spec.dim). A column block passes
+    an all-reduce over its column group divided by the full row's dim, so
+    the accumulator stays a full-row statistic, the same on every column."""
     opt = spec.optimizer
     slot, fresh = ctx.slot, ctx.fresh
     enabled = slot >= 0
@@ -54,7 +60,8 @@ def apply_sparse_grads_ctx(spec: TableSpec, shard: TableShard, ctx, grad: torch.
         return
     if opt.kind == "rowwise_adagrad":
         (accum,) = shard.opt_rowwise
-        g2 = (grad * grad).sum(dim=1) / spec.dim
+        g2 = (grad * grad).sum(dim=1)
+        g2 = g2 / spec.dim if g2_mean is None else g2_mean(g2)
         acc_add = g2 + torch.where(fresh, opt.initial_accumulator, 0.0)
         # fresh slots hold 0 before the add
         a_new = fetch_add_bucket_plane(accum, slot, acc_add, enabled) + acc_add

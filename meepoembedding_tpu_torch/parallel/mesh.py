@@ -12,6 +12,11 @@ with its size S, this process's rank and its device.
   >>> init_distributed("gloo", "file:///tmp/store", rank, 4, device="cpu")
   >>> mesh = make_mesh(device="cpu")          # a world of 4
 
+`make_mesh2d(S, C)` lays a world of S * C ranks out as the grid of a
+column-sharded table (`parallel/colsharded.py`): each rank gets the mesh
+of its column (S ranks, the exchange) and of its row shard (C ranks, the
+lane blocks).
+
 A group made with backend "cpu:gloo,cuda:nccl" (the default for a CUDA
 device) carries both CPU and CUDA tensors, so one process can run the same
 code on either device. There is no fallback: if NCCL cannot start, the
@@ -22,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -78,6 +83,48 @@ def make_mesh(group: Optional[dist.ProcessGroup] = None, device="cuda") -> Mesh:
         dev = torch.device("cuda", torch.cuda.current_device())
     return Mesh(group=group, size=dist.get_world_size(group), rank=dist.get_rank(group),
                 device=dev)
+
+
+class Mesh2D(NamedTuple):
+    """The (row x column) grid of a column-sharded table
+    (`parallel/colsharded.py`), seen from one rank: world rank r = s * C +
+    c holds lanes [c * dim / C, (c + 1) * dim / C) of row shard s."""
+
+    world: Mesh  # all S * C ranks (the checkpoint protocol's barriers)
+    row: Mesh  # column c's S ranks {c, C + c, ...}: the id exchange; rank s
+    col: Mesh  # row shard s's C ranks {s * C, ..., s * C + C - 1}; rank c
+
+    @property
+    def S(self) -> int:
+        return self.row.size
+
+    @property
+    def C(self) -> int:
+        return self.col.size
+
+
+def make_mesh2d(num_row: int, num_col: int, device="cuda") -> Mesh2D:
+    """The 2-D grid over a world of num_row * num_col ranks, rank r = s * C
+    + c as the reference's `devs.reshape(S, C)`. Every rank creates every
+    subgroup, in the same order (`dist.new_group` is a collective of the
+    world), with the world's backend; a subgroup that is the whole world is
+    the default group. Without a world yet, this process starts one of one
+    (`init_distributed`)."""
+    world = make_mesh(device=device)
+    S, C = num_row, num_col
+    if world.size != S * C:
+        raise ValueError(f"a {S} x {C} grid needs a world of {S * C} ranks, "
+                         f"not {world.size}")
+
+    def group(ranks):
+        return None if len(ranks) == world.size else dist.new_group(ranks, timeout=_TIMEOUT)
+
+    s, c = divmod(world.rank, C)
+    rows = [group([si * C + ci for si in range(S)]) for ci in range(C)]
+    cols = [group([si * C + ci for ci in range(C)]) for si in range(S)]
+    return Mesh2D(world=world,
+                  row=Mesh(group=rows[c], size=S, rank=s, device=world.device),
+                  col=Mesh(group=cols[s], size=C, rank=c, device=world.device))
 
 
 def destroy() -> None:

@@ -133,12 +133,12 @@ def exchange_lookup(spec: TableSpec, shard: TableShard, uh, ul, valid, step: int
 
 
 def exchange_apply_grads(spec: TableSpec, shard: TableShard, ctx: RaggedCtx, g_u,
-                         mesh: Mesh, rcap: int) -> None:
+                         mesh: Mesh, rcap: int, g2_mean=None) -> None:
     """The gradients' way back over the forward plan: per-unique gradients
     to their owners (in `sharded_table.wire_dtype`), summed per key there,
-    one in-place update a key."""
+    one in-place update a key (`g2_mean`: `st.owner_update`'s)."""
     plan = ctx.plan
     got = _transport(g_u.to(st.wire_dtype(spec))[plan.src], plan.recv, plan.send, mesh)
     recv_g = got.new_zeros((rcap, spec.dim))
     recv_g[:got.shape[0]] = got
-    st.owner_update(spec, shard, ctx, recv_g)
+    st.owner_update(spec, shard, ctx, recv_g, g2_mean=g2_mean)

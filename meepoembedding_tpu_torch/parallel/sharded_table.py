@@ -203,31 +203,34 @@ def wire_dtype(spec: TableSpec) -> torch.dtype:
     return spec.dtype if spec.dtype == torch.bfloat16 and GRAD_WIRE_BF16 else torch.float32
 
 
-def owner_update(spec: TableSpec, shard: TableShard, ctx, recv_g: torch.Tensor) -> None:
+def owner_update(spec: TableSpec, shard: TableShard, ctx, recv_g: torch.Tensor,
+                 g2_mean=None) -> None:
     """Segment-sum the received per-id gradients [n, dim] by the owner
-    dedup (in f32) and apply one sparse update a key, in place."""
+    dedup (in f32) and apply one sparse update a key, in place. `g2_mean`:
+    `optim.apply_sparse_grads_ctx`'s accumulator hook."""
     g = dedup.segment_sum_grads(recv_g.float(), ctx.inverse, ctx.inverse.shape[0],
                                 order=ctx.order, sorted_ids=ctx.sorted_ids)
-    optim.apply_sparse_grads_ctx(spec, shard, ctx.lctx, g)
+    optim.apply_sparse_grads_ctx(spec, shard, ctx.lctx, g, g2_mean=g2_mean)
 
 
 def exchange_apply_grads(spec: TableSpec, shard: TableShard, ctx, g_u: torch.Tensor,
-                         mesh: Mesh, cap: int) -> None:
+                         mesh: Mesh, cap: int, g2_mean=None) -> None:
     """The way back: per-unique gradients [U, dim] to their owners over the
     forward plan, summed per key there, one in-place update a key. A
-    `RaggedCtx` takes the ragged way back."""
+    `RaggedCtx` takes the ragged way back. `g2_mean` is passed to the
+    owner's update (`optim.apply_sparse_grads_ctx`)."""
     from meepoembedding_tpu_torch.parallel import ragged as rg
 
     if isinstance(ctx, rg.RaggedCtx):
-        rg.exchange_apply_grads(spec, shard, ctx, g_u, mesh, cap)
+        rg.exchange_apply_grads(spec, shard, ctx, g_u, mesh, cap, g2_mean=g2_mean)
         return
     if not exchanging(mesh):
-        optim.apply_sparse_grads_ctx(spec, shard, ctx.lctx, g_u)
+        optim.apply_sparse_grads_ctx(spec, shard, ctx.lctx, g_u, g2_mean=g2_mean)
         return
     S = mesh.size
     send = torch.zeros((S * cap + 1, spec.dim), dtype=wire_dtype(spec), device=g_u.device)
     send[_flat_index(ctx.owner, ctx.pos, ctx.ok, S, cap)] = g_u.to(send.dtype)
-    owner_update(spec, shard, ctx, all_to_all(send[:S * cap], mesh))
+    owner_update(spec, shard, ctx, all_to_all(send[:S * cap], mesh), g2_mean=g2_mean)
 
 
 def exchange_erase(spec: TableSpec, shard: TableShard, uh, ul, valid, mesh: Mesh,

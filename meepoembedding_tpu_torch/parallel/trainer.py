@@ -160,7 +160,7 @@ class ShardedTrainer:
                              f"{self.S} ranks")
         self.run_cfg, self.table_cfg, self.model_cfg = run_cfg, table_cfg, model_cfg
         self.spec = TableSpec.from_config(table_cfg, num_shards=self.S)
-        self.shard = alloc_shard(self.spec, self.device)
+        self.shard = alloc_shard(self.spec_local, self.device)
         gen = generator if generator is not None else torch.Generator().manual_seed(run_cfg.seed)
         self.model = build_model(model_cfg, generator=gen).to(self.device)
         self.params = [p for p, _ in param_leaves(self.model)]
@@ -199,6 +199,34 @@ class ShardedTrainer:
         self._bag_len = 1
         self.a2a_factor = run_cfg.a2a_factor
         self.a2a_ragged = run_cfg.a2a_ragged
+
+    # --- what a column-sharded subclass changes (`parallel/colsharded.py`) ----
+    def _local(self, spec: TableSpec) -> TableSpec:
+        """The geometry of the shard this rank holds for the table `spec`."""
+        return spec
+
+    @property
+    def spec_local(self) -> TableSpec:
+        return self._local(self.spec)
+
+    def _lane_slice(self, spec_local: TableSpec):
+        """The lanes of a saved row this rank restores (None: all)."""
+        return None
+
+    def _full_rows(self, emb_u: torch.Tensor) -> torch.Tensor:
+        """The tower's [U, dim] rows from this rank's exchanged rows."""
+        return emb_u
+
+    def _own_block(self, g_rows: torch.Tensor) -> torch.Tensor:
+        """The part of the rows' gradients that updates this rank's shard."""
+        return g_rows
+
+    _g2_mean = None  # the rowwise accumulator's hook (`optim.apply_sparse_grads_ctx`)
+
+    def _dense_lr(self) -> float:
+        rc = self.run_cfg
+        return optim.schedule_lr(rc.lr_schedule, rc.dense_learning_rate, self.step, rc.steps,
+                                 rc.warmup_steps)
 
     # --- the exchange's geometry ---------------------------------------------
     def _cap(self) -> int:
@@ -239,7 +267,7 @@ class ShardedTrainer:
         the pipeline fills), "retired_step", "in_flight"}."""
         self._maybe_grow_ucap(tuple(batch["ids"].shape))
         self._maybe_grow(int(np.prod(batch["ids"].shape)) * self.S)
-        spec, rc, mesh = self.spec, self.run_cfg, self.mesh
+        spec, rc, mesh = self.spec_local, self.run_cfg, self.mesh
         shape, dense, label, uniq, bag_valid, ikey, omaj = self._inputs(batch)
         logq = None
         if self._freq_est is not None:
@@ -249,21 +277,22 @@ class ShardedTrainer:
         emb_u, ctx = st.exchange_lookup(spec, self.shard, uniq.hi, uniq.lo, uniq.valid,
                                         self.step, mesh, cap, train=True,
                                         ragged=self.a2a_ragged, owner_sorted=bool(omaj))
-        rows_u = emb_u.detach().requires_grad_(True)
+        rows_u = self._full_rows(emb_u).detach().requires_grad_(True)
         flat = dedup.GatherRows.apply(rows_u, uniq.inverse, uniq.order, uniq.sorted_ids)
-        emb = model_inputs(self.model, flat, shape, bag_valid, spec.dim, self.model_cfg.combiner)
+        emb = model_inputs(self.model, flat, shape, bag_valid, self.spec.dim,
+                           self.model_cfg.combiner)
         loss, logits = model_loss(self.model, dense, emb, bag_valid, label, ikey, logq=logq)
         # 1/S: the owners' sums and the all-reduce below give the global mean
         loss = loss / self.S
         g_rows, *g_dense = torch.autograd.grad(loss, [rows_u, *self.params])
         with torch.no_grad():
-            st.exchange_apply_grads(spec, self.shard, ctx, g_rows, mesh, cap)
+            st.exchange_apply_grads(spec, self.shard, ctx, self._own_block(g_rows), mesh, cap,
+                                    g2_mean=self._g2_mean)
             *g_dense, loss, drops = sum_over_ranks([*g_dense, loss, ctx.n_drop], mesh)
             if rc.grad_clip_norm is not None:
                 g_dense = optim.clip_by_global_norm(g_dense, rc.grad_clip_norm)
-            lr = optim.schedule_lr(rc.lr_schedule, rc.dense_learning_rate, self.step,
-                                   rc.steps, rc.warmup_steps)
-            self.opt_state = optim.dense_adam_update(self.params, g_dense, self.opt_state, lr)
+            self.opt_state = optim.dense_adam_update(self.params, g_dense, self.opt_state,
+                                                     self._dense_lr())
         self.step += 1
         self._pending.append({"step": self.step - 1, "loss": loss, "drops": drops,
                               "logits": logits.detach(), "labels": label,
@@ -308,10 +337,11 @@ class ShardedTrainer:
         the mean over ranks, "logits": this rank's, "route_drops": global}."""
         self._maybe_grow_ucap(tuple(batch["ids"].shape))
         shape, dense, label, uniq, bag_valid, ikey, omaj = self._inputs(batch)
-        emb_u, ctx = st.exchange_lookup(self.spec, self.shard, uniq.hi, uniq.lo, uniq.valid, 0,
-                                        self.mesh, self._cap(), train=False,
+        emb_u, ctx = st.exchange_lookup(self.spec_local, self.shard, uniq.hi, uniq.lo,
+                                        uniq.valid, 0, self.mesh, self._cap(), train=False,
                                         ragged=self.a2a_ragged, owner_sorted=bool(omaj))
-        flat = dedup.GatherRows.apply(emb_u, uniq.inverse, uniq.order, uniq.sorted_ids)
+        flat = dedup.GatherRows.apply(self._full_rows(emb_u), uniq.inverse, uniq.order,
+                                      uniq.sorted_ids)
         emb = model_inputs(self.model, flat, shape, bag_valid, self.spec.dim,
                            self.model_cfg.combiner)
         loss, logits = model_loss(self.model, dense, emb, bag_valid, label, ikey)
@@ -352,11 +382,11 @@ class ShardedTrainer:
         (`regrow_shard`); every rank calls it at the same step."""
         from meepoembedding_tpu_torch.table.runtime import regrow_shard
 
-        old_spec = self.spec
+        old_local = self.spec_local
         self.table_cfg = dataclasses.replace(self.table_cfg,
                                              capacity=self.table_cfg.capacity * 2)
         self.spec = TableSpec.from_config(self.table_cfg, num_shards=self.S)
-        self.shard = regrow_shard(old_spec, self.spec, self.shard, self.step)
+        self.shard = regrow_shard(old_local, self.spec_local, self.shard, self.step)
 
     def remove(self, ids64) -> int:
         """Erase keys on their owners (`exchange_erase`). Every rank passes
@@ -367,7 +397,7 @@ class ShardedTrainer:
         ids = np.full((n,), hashing.EMPTY_ID, np.int64)
         ids[:len(uniq)] = uniq
         hi, lo = hashing.split_ids_t(torch.from_numpy(ids).to(self.device))
-        removed = st.exchange_erase(self.spec, self.shard, hi, lo, hashing.is_valid(hi, lo),
+        removed = st.exchange_erase(self.spec_local, self.shard, hi, lo, hashing.is_valid(hi, lo),
                                     self.mesh, st.a2a_capacity(n, self.S, self.a2a_factor))
         return int(removed)
 
@@ -375,7 +405,7 @@ class ShardedTrainer:
     def _apply_promotions(self) -> PromoteStats:
         if self._promoter is None:
             return PromoteStats()
-        pst = drain_promotions(self.spec, self.shard, self._promoter, self.step)
+        pst = drain_promotions(self.spec_local, self.shard, self._promoter, self.step)
         # promotions add live rows that train_step's bound did not count
         self._live_upper += int(multihost.all_processes_sum(pst.inserted, self.mesh))
         self.promote_respills += pst.respilled
@@ -393,15 +423,20 @@ class ShardedTrainer:
         if self.spec.policy.evict_policy == "none":
             return out
         off = self._evict_cursor
-        self._evict_cursor = table_ops.next_evict_cursor(self.spec, off)
-        export = table_ops.evict_pass(self.spec, self.shard, self.step, off)
-        if export.count and self.spill is not None:
+        self._evict_cursor = table_ops.next_evict_cursor(self.spec_local, off)
+        export = table_ops.evict_pass(self.spec_local, self.shard, self.step, off)
+        if export.count:
+            self._spill(export)
+        out["evicted"] = int(multihost.all_processes_sum(export.count, self.mesh))
+        return out
+
+    def _spill(self, export) -> None:
+        """This rank's evicted rows into its cold tier, if it has one."""
+        if self.spill is not None:
             from meepoembedding_tpu_torch.tiering import SpillCodec, spill_export
 
             spill_export(SpillCodec(self.spec), self.spill, export)
             self.spilled_rows += export.count
-        out["evicted"] = int(multihost.all_processes_sum(export.count, self.mesh))
-        return out
 
     # --- checkpoints ----------------------------------------------------------
     def save_checkpoint(self, path: str, extras: Optional[dict] = None) -> dict:
@@ -433,10 +468,12 @@ class ShardedTrainer:
         while cfg.grow_at_load is not None and total > cfg.grow_at_load * spec.capacity * self.S:
             cfg = dataclasses.replace(cfg, capacity=cfg.capacity * 2)
             spec = TableSpec.from_config(cfg, num_shards=self.S)
-        checkpoint.check_manifest(spec, m)
+        local = self._local(spec)
+        checkpoint.check_manifest(local, m, self._lane_slice(local))
         self.shard = None  # free the old planes before the new ones land
-        shards, manifest = checkpoint.restore_shards(spec, path, self.S, device=self.device,
-                                                     only_ids={self.mesh.rank})
+        shards, manifest = checkpoint.restore_shards(local, path, self.S, device=self.device,
+                                                     only_ids={self.mesh.rank},
+                                                     lane_slice=self._lane_slice(local))
         self.table_cfg, self.spec, self.shard = cfg, spec, shards[self.mesh.rank]
         saved = manifest.get("dense", [])
         if "params" in saved:

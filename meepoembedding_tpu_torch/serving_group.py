@@ -1,5 +1,5 @@
 """Online scoring of group checkpoints (port of
-`meepoembedding_tpu/serving_group.py`, on one device).
+`meepoembedding_tpu/serving_group.py`).
 
 `GroupScoringService` restores a group checkpoint (group.json, one
 checkpoint a member, the dense head) into a `GroupTrainer` and scores
@@ -9,13 +9,17 @@ model.combiner. It has the score / reload / stats / metrics_text surface
 of `serving.ScoringService`, so `serving.make_http_server` serves it.
 Request batches pad to a power of two, as the reference's do.
 
-`distributed=True` (members row-sharded over a mesh) is not ported: it
-waits for `ShardedGroupTrainer` (ROADMAP, queue 1, "parallel/ for
-groups").
+`distributed=True` restores every member row-sharded over `mesh`
+(default: the world) through `ShardedGroupTrainer` and scores through the
+members' probe-only exchanges; route drops are counted. As in
+`serving_sharded.ShardedScoringService`, each rank scores its own rows of
+a request, and every rank calls `score` in lockstep with batches of the
+same shape.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Dict, Optional, Sequence
@@ -29,28 +33,38 @@ class GroupScoringService:
     def __init__(self, ckpt_path: str, run_cfg, table_cfgs: Dict[str, object],
                  feature_map: Sequence[str], model_cfg, distributed: bool = False, mesh=None,
                  device="cuda"):
-        if distributed:
-            raise NotImplementedError(
-                "GroupScoringService(distributed=True) is not ported yet (ROADMAP.md, queue 1, "
-                "'parallel/ for groups': ShardedGroupTrainer and the groups' sharded serving)")
         self._args = (run_cfg, dict(table_cfgs), list(feature_map), model_cfg)
         self.device = device
         self.distributed = distributed
+        self._mesh = mesh
         self._ckpt_path = ckpt_path
-        self._lock = threading.Lock()  # one device; serialize requests
+        self._lock = threading.Lock()  # one request at a time
         self._lat_ms: list = []
         self._requests = 0
-        self.route_drops = 0  # always 0 on one device; kept for the reference's stats
-        self.S = 1
+        self.route_drops = 0  # lifetime: ids scored with zero rows (0 on one device)
         self.trainer, self.manifest = self._restore(ckpt_path)
+        self.S = self.trainer.S
 
     def _restore(self, path: str):
         """A fresh trainer restored from `path`; the caller swaps it in, so a
         reload keeps serving the old state until the new one is up."""
-        from meepoembedding_tpu_torch.group_train import GroupTrainer
+        from meepoembedding_tpu_torch.group_train import GroupTrainer, ShardedGroupTrainer
 
         run_cfg, tables, fmap, model_cfg = self._args
-        tr = GroupTrainer(run_cfg, tables, fmap, model_cfg, device=self.device)
+        if not self.distributed:
+            tr = GroupTrainer(run_cfg, tables, fmap, model_cfg, device=self.device)
+            return tr, tr.load_checkpoint(path)
+        from meepoembedding_tpu_torch.parallel.mesh import make_mesh
+
+        if self._mesh is None:
+            self._mesh = make_mesh(device=self.device)
+        S = self._mesh.size
+        if run_cfg.batch_size % S:
+            # the trainer needs batch % S == 0; requests pad themselves, so
+            # the configured batch size only has to split
+            run_cfg = dataclasses.replace(run_cfg, batch_size=max(S, run_cfg.batch_size // S * S))
+        tr = ShardedGroupTrainer(run_cfg, tables, fmap, model_cfg, mesh=self._mesh,
+                                 device=self.device)
         return tr, tr.load_checkpoint(path)
 
     def score(self, dense, ids) -> np.ndarray:
@@ -68,6 +82,7 @@ class GroupScoringService:
                     [ids, np.full((bp - b,) + ids.shape[1:], hashing.EMPTY_ID, np.int64)])
             out = self.trainer.eval_step(
                 {"dense": dense, "ids": ids, "label": np.zeros((bp,), np.float32)})
+            self.route_drops += int(out.get("route_drops", 0))
             logits = out["logits"].cpu().numpy().astype(np.float64)
             p = 1.0 / (1.0 + np.exp(-logits))
             self._requests += 1

@@ -107,7 +107,7 @@ _P_LO = 0.02275013194817921  # Phi(-2)
 
 
 def default_rows(hi, lo, dim: int, scale: float, dtype=torch.float32,
-                 kind: str = "uniform") -> torch.Tensor:
+                 kind: str = "uniform", lane_offset: int = 0) -> torch.Tensor:
     """Deterministic fresh-row initializer derived from the key hash alone,
     so a row's init does not depend on insert order. scale == 0 gives zeros
     for every kind.
@@ -118,7 +118,11 @@ def default_rows(hi, lo, dim: int, scale: float, dtype=torch.float32,
       constant          every element == scale
 
     The per-lane hash streams and the uniform draws are the reference's
-    bits; `torch.special.erfinv` may differ from JAX's in the last places."""
+    bits; `torch.special.erfinv` may differ from JAX's in the last places.
+    `lane_offset` shifts the per-lane stream: a column block holding lanes
+    [off, off + dim) of a wider row (`parallel/colsharded.py`) draws the
+    bits a full-width row has there, so the C blocks, concatenated, equal
+    the full-dim init."""
     n = hi.shape[0]
     if scale == 0.0:
         return torch.zeros((n, dim), dtype=dtype, device=hi.device)
@@ -127,7 +131,7 @@ def default_rows(hi, lo, dim: int, scale: float, dtype=torch.float32,
     if kind not in INITIALIZERS:
         raise ValueError(f"initializer must be one of {INITIALIZERS}, got {kind!r}")
     h0 = hash_pair(hi, lo, SALT_INIT)  # [n]
-    d = torch.arange(dim, dtype=torch.int64, device=hi.device)
+    d = torch.arange(lane_offset, lane_offset + dim, dtype=torch.int64, device=hi.device)
     bits = fmix32((h0[:, None] + mul32(d & M32, 0x9E3779B9)[None, :]) & M32)
     # top 24 bits -> uniform [0, 1), exact in f32
     u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))

@@ -59,6 +59,10 @@ class TableSpec:
     policy: PolicyConfig
     insert_cap: Optional[int] = None
     initializer: str = "uniform"
+    # a column block (`parallel/colsharded.py`) holds lanes
+    # [init_lane_offset, init_lane_offset + dim) of a wider row; fresh rows
+    # draw exactly those lanes' bits (`hashing.default_rows(lane_offset=)`)
+    init_lane_offset: int = 0
 
     @staticmethod
     def from_config(cfg: TableConfig, num_shards: int = 1) -> "TableSpec":

@@ -342,7 +342,7 @@ def lookup_train(spec: TableSpec, shard: TableShard, uh, ul, valid, step: int) -
 
     rows = gather_values(shard.values, slot)
     init = hashing.default_rows(uh, ul, spec.dim, spec.initializer_scale, spec.dtype,
-                                kind=spec.initializer)
+                                kind=spec.initializer, lane_offset=spec.init_lane_offset)
     rows_u = torch.where(fresh[:, None], init, rows).float()
     rows_u.masked_fill_((slot < 0)[:, None], 0.0)
 

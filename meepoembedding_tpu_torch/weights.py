@@ -164,3 +164,27 @@ def stacked_from_shards(shards: Sequence) -> Dict[str, object]:
     out["opt_fulldim"] = [lanes([sh.opt_fulldim[j] for sh in shards])
                           for j in range(len(shards[0].opt_fulldim))]
     return out
+
+
+# --- column-sharded tables: the reference's [S, C, ...] planes -----------------
+
+def _column(stacked: Dict[str, object], c: int) -> Dict[str, object]:
+    return {k: [p[:, c] for p in v] if isinstance(v, list) else v[:, c]
+            for k, v in stacked.items()}
+
+
+def shard_from_stacked2(stacked: Dict[str, object], s: int, c: int, device="cpu"):
+    """The TableShard of row shard `s`, column `c`, on `device`, from a
+    column-sharded table's planes stacked [S, C, ...] (the reference's
+    `addressable_shard_trees2` layout; the keys of `shard_from_stacked`)."""
+    return shard_from_stacked(_column(stacked, c), s, device)
+
+
+def stacked_from_shards2(shards_by_sc: Dict[Tuple[int, int], object], S: int, C: int
+                         ) -> Dict[str, object]:
+    """The inverse of `shard_from_stacked2`: {(s, c): TableShard} of a
+    whole S x C grid -> the reference's [S, C, ...] stacked planes."""
+    cols = [stacked_from_shards([shards_by_sc[(s, c)] for s in range(S)]) for c in range(C)]
+    return {k: ([np.stack([col[k][j] for col in cols], axis=1) for j in range(len(v))]
+                if isinstance(v, list) else np.stack([col[k] for col in cols], axis=1))
+            for k, v in cols[0].items()}

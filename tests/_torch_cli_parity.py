@@ -1,8 +1,9 @@
 """Shared by the port's command-line tests (`tests/test_torch_cli*.py`):
 in-process calls of the JAX package's and the port's `main` with their
 output captured, checkpoint rows by id, the sizes and tolerances of the
-single-table cases, a `serve --http` subprocess of the port and the
-reference's `serve --http` on a thread."""
+single-table cases, a `serve --http` subprocess of the port, the
+reference's `serve --http` on a thread, and worlds of gloo ranks running
+the port's `--distributed` command line under torchrun's variables."""
 
 import contextlib
 import io
@@ -149,3 +150,31 @@ def reference_http_server(argv: list, monkeypatch):
         if "srv" in made:
             made["srv"].server_close()
     assert result == {"rc": 0}, result
+
+
+def run_world(argv: list, world: int = 2, timeout: float = 120.0) -> list:
+    """(exit code, stdout, stderr) of each rank of a world of `world`
+    processes running `python -m meepoembedding_tpu_torch <argv> --device
+    cpu`, which meet through torchrun's environment (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR, MASTER_PORT). Every rank is killed at the
+    timeout; a failed rank's traceback is the assertion message."""
+    base = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(free_port()), WORLD_SIZE=str(world))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "meepoembedding_tpu_torch", *argv, "--device", "cpu"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
+        env=dict(base, RANK=str(r), LOCAL_RANK=str(r))) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            outs.append((p.returncode, out, err))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        errs = [p.communicate()[1][-3000:] for p in procs]
+        raise AssertionError("world timed out:\n" + "\n".join(
+            f"rank {r} of {world}:\n{e}" for r, e in enumerate(errs)))
+    for r, (rc, _, err) in enumerate(outs):
+        assert rc == 0, f"rank {r} of {world} failed:\n{err[-3000:]}"
+    return outs

@@ -37,7 +37,10 @@ from meepoembedding_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from meepoembedding_tpu_torch.parallel import multihost  # noqa: E402
 from meepoembedding_tpu_torch.parallel import ragged as rg  # noqa: E402
 from meepoembedding_tpu_torch.parallel import sharded_table as st  # noqa: E402
+from meepoembedding_tpu_torch.group_train import ShardedGroupTrainer  # noqa: E402
+from meepoembedding_tpu_torch.parallel.colsharded import ColShardedTrainer  # noqa: E402
 from meepoembedding_tpu_torch.parallel.trainer import ShardedTrainer  # noqa: E402
+from meepoembedding_tpu_torch.serving_group import GroupScoringService  # noqa: E402
 from meepoembedding_tpu_torch.serving_sharded import ShardedScoringService  # noqa: E402
 from meepoembedding_tpu_torch.table import hashing  # noqa: E402
 from meepoembedding_tpu_torch.table.layout import TableSpec, alloc_shard  # noqa: E402
@@ -129,32 +132,45 @@ def trainer(mesh, inp, args):
     step of the `promote_*` batch followed by maintenance), then optionally
     an eval of batch `steps`, a `remove` of `remove_ids` and a save to
     `save`: the flushed losses, the shard, the params, counters, factors
-    and the spill tier."""
+    and the spill tier. With `grid` [S, C], a ColShardedTrainer on that
+    grid of the world (each row shard's ranks read its rows; the cold tier
+    on column 0)."""
     run = RunConfig(**args["run"])
     table = table_config(args["table"])
+    model = model_config(args["model"])
     spill = None
-    if args.get("maintenance_every"):
-        spill = PyKVStore(SpillCodec(TableSpec.from_config(table, mesh.size)).width)
-    tr = ShardedTrainer(run, table, model_config(args["model"]), mesh=mesh, spill=spill)
+    if "grid" in args:
+        m2 = pmesh.make_mesh2d(*args["grid"], device="cpu")
+        bmesh = m2.row
+        if args.get("maintenance_every") and m2.col.rank == 0:
+            spill = PyKVStore(SpillCodec(TableSpec.from_config(table, m2.S)).width)
+        tr = ColShardedTrainer(run, table, model, m2, spill=spill, device="cpu")
+    else:
+        bmesh = mesh
+        if args.get("maintenance_every"):
+            spill = PyKVStore(SpillCodec(TableSpec.from_config(table, mesh.size)).width)
+        tr = ShardedTrainer(run, table, model, mesh=mesh, spill=spill)
     from_jax_params(tr.model, [inp[f"p{j}"] for j in range(args["nparams"])])
     if "restore" in args:
         tr.load_checkpoint(args["restore"])
     returned, factors, evicted = [], [], []
     for s in range(args["steps"]):
-        returned.append(tr.train_step(_batch(inp, s, mesh))["loss"])
+        returned.append(tr.train_step(_batch(inp, s, bmesh))["loss"])
         factors.append(tr.a2a_factor)
-        if spill is not None and (s + 1) % args["maintenance_every"] == 0:
-            tr._promoter.flush()  # the feeds so far staged, as on the JAX side
+        if args.get("maintenance_every") and (s + 1) % args["maintenance_every"] == 0:
+            if tr._promoter is not None:  # the feeds so far staged, as on the JAX side
+                tr._promoter.flush()
             evicted.append(tr.maintenance()["evicted"])
     out = {"losses": np.array([x for x in returned if x is not None]
                               + [loss for _, loss in tr.flush()]),
            "returned": np.array([np.nan if x is None else x for x in returned]),
            "factors": np.array(factors), "evicted": np.array(evicted)}
     if "promote_ids" in inp:  # spilled ids trained again come back at maintenance
-        tr.train_step({k: multihost.shard_batch(inp[f"promote_{k}"], mesh)
+        tr.train_step({k: multihost.shard_batch(inp[f"promote_{k}"], bmesh)
                        for k in ("dense", "ids", "label")})
         tr.flush()
-        tr._promoter.flush()
+        if tr._promoter is not None:
+            tr._promoter.flush()
         m = tr.maintenance()
         out.update(promoted=m["promoted"], promote_evicted=m["evicted"])
     if spill is not None:
@@ -162,7 +178,7 @@ def trainer(mesh, inp, args):
         out["spill_rows"] = np.array([spill._d[k] for k in sorted(spill._d)], np.float32)
     out["logits"] = tr.last_logits.numpy() if tr.last_logits is not None else np.zeros(0)
     if args.get("eval"):
-        ev = tr.eval_step(_batch(inp, args["steps"], mesh))
+        ev = tr.eval_step(_batch(inp, args["steps"], bmesh))
         out.update(eval_loss=ev["loss"], eval_logits=ev["logits"].numpy(),
                    eval_drops=ev["route_drops"])
     if "remove_ids" in inp:
@@ -229,7 +245,78 @@ def http(svc, inp) -> dict:
             "http_devices": health["devices"]}
 
 
-CASES = {"exchange": exchange, "trainer": trainer, "serve": serve}
+def group(mesh, inp, args):
+    """A ShardedGroupTrainer from the JAX head params `p*` (or, with
+    `restore`, a checkpoint): `steps` steps (with `maintenance_every`,
+    maintenance into per-member PyKVStores of the `spill` members, then a
+    step of the `promote_*` batch and maintenance), an eval of batch
+    `steps`, a `remove` of `remove_ids` from member `remove`, a save to
+    `save`, and with `score` the scores of `score_*` by a distributed
+    GroupScoringService on that checkpoint. Outputs the flushed losses,
+    counters, params, every member's planes ("<name>." prefixed) and the
+    cold tiers."""
+    run = RunConfig(**args["run"])
+    tables = {n: table_config(t) for n, t in args["tables"].items()}
+    model = model_config(args["model"])
+    spill = {n: PyKVStore(SpillCodec(TableSpec.from_config(tables[n], mesh.size)).width)
+             for n in args.get("spill", [])}
+    tr = ShardedGroupTrainer(run, tables, args["fmap"], model, mesh=mesh, spill=spill or None,
+                             device="cpu")
+    from_jax_params(tr.head, [inp[f"p{j}"] for j in range(args["nparams"])])
+    if "restore" in args:
+        tr.load_checkpoint(args["restore"])
+    out, returned, evicted = {}, [], []
+    every = args.get("maintenance_every", 0)
+    for s in range(args["steps"]):
+        returned.append(tr.train_step(_batch(inp, s, mesh))["loss"])
+        if every and (s + 1) % every == 0:
+            for prm in tr._promoters.values():
+                prm.flush()
+            m = tr.maintenance()
+            evicted.append([m[n]["evicted"] for n in tr.names])
+    out["losses"] = np.array([x for x in returned if x is not None]
+                             + [loss for _, loss in tr.flush()])
+    out["returned"] = np.array([np.nan if x is None else x for x in returned])
+    out["evicted"] = np.array(evicted)
+    if "promote_ids" in inp:
+        tr.train_step({k: multihost.shard_batch(inp[f"promote_{k}"], mesh)
+                       for k in ("dense", "ids", "label")})
+        tr.flush()
+        for prm in tr._promoters.values():
+            prm.flush()
+        m = tr.maintenance()
+        out["promoted"] = np.array([m[n]["promoted"] for n in tr.names])
+    if args.get("eval"):
+        ev = tr.eval_step(_batch(inp, args["steps"], mesh))
+        out.update(eval_loss=ev["loss"], eval_logits=ev["logits"].numpy(),
+                   eval_drops=ev["route_drops"])
+    if "remove_ids" in inp:
+        out["removed"] = tr.remove(args["remove"], inp["remove_ids"])
+    if "save" in args:
+        tr.save_checkpoint(args["save"])
+    if "score" in args:
+        svc = GroupScoringService(args["score"], run, tables, args["fmap"], model,
+                                  distributed=True, mesh=mesh, device="cpu")
+        out["scores"] = svc.score(multihost.shard_batch(inp["score_dense"], mesh).numpy(),
+                                  multihost.shard_batch(inp["score_ids"], mesh).numpy())
+        out["score_drops"] = svc.route_drops
+    c = tr.counters()
+    names = sorted(c[tr.names[0]])
+    out["ctr_names"] = np.array(names)
+    out["ctr_values"] = np.array([[c[n][k] for k in names] for n in tr.names])
+    out["step"] = tr.step
+    for j, p in enumerate(to_jax_params(tr.head)):
+        out[f"param{j}"] = p
+    for n in tr.names:
+        out.update(planes(tr.shards[n], prefix=f"{n}."))
+        if n in spill:
+            out[f"{n}.spill_keys"] = np.array(sorted(spill[n]._d), np.int64)
+            out[f"{n}.spill_rows"] = np.array([spill[n]._d[k] for k in sorted(spill[n]._d)],
+                                              np.float32).reshape(len(spill[n]._d), -1)
+    return out
+
+
+CASES = {"exchange": exchange, "trainer": trainer, "serve": serve, "group": group}
 
 
 def main():

@@ -395,30 +395,20 @@ def test_disk_spill_defaults_to_the_temporary_directory(tmp_path, monkeypatch):
     assert (tmp_path / "meepo_spill.log").stat().st_size > 0
 
 
-@pytest.mark.parametrize("case", ["colsharded", "group-train", "group-serve", "group-eval",
-                                  "group-serve-http", "http-sharded"])
+@pytest.mark.parametrize("case", ["group-serve-http", "http-sharded"])
 def test_paths_not_ported_raise(tmp_path, monkeypatch, case):
     """Each names its ROADMAP item. A world of two ranks is torchrun's
     WORLD_SIZE; every refusal comes before the ranks would meet."""
     g = _group_yaml(tmp_path)
     ck = str(tmp_path / "ck")
-    argv, item = {
-        "colsharded": (["train", "--distributed", "--col-shards", "2", "--set", *SETS],
-                       "colsharded"),
-        "group-train": (["train", "--distributed", "--config", g], "parallel/ for groups"),
-        "group-serve": (["serve", "--distributed", "--ckpt", ck, "--config", g],
-                        "parallel/ for groups"),
-        "group-serve-http": (["serve", "--distributed", "--http", "1", "--ckpt", ck,
-                              "--config", g], "parallel/ for groups"),
-        "group-eval": (["eval", "--distributed", "--ckpt", ck, "--config", g],
-                       "parallel/ for groups"),
-        "http-sharded": (["serve", "--distributed", "--http", "1", "--ckpt", ck, "--set", *SETS],
-                         "HTTP serving over S ranks"),
+    argv = {
+        "group-serve-http": ["serve", "--distributed", "--http", "1", "--ckpt", ck,
+                             "--config", g],
+        "http-sharded": ["serve", "--distributed", "--http", "1", "--ckpt", ck, "--set", *SETS],
     }[case]
-    if case != "colsharded":
-        monkeypatch.setenv("WORLD_SIZE", "2")
-        monkeypatch.setenv("RANK", "0")
-    with pytest.raises(NotImplementedError, match=item):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(NotImplementedError, match="HTTP serving over S ranks"):
         tcli.main(argv + ["--device", "cpu"])
 
 

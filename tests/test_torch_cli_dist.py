@@ -14,20 +14,25 @@ here the front end:
   the same bins), mean loss within rtol 1e-5 (a mean of the ranks' means);
 - `serve --distributed` prints rank 0's and rank 1's scores of each global
   batch, equal within rtol 1e-5 / atol 1e-6 to the single-device scores of
-  those lines."""
+  those lines;
+- `train --distributed --col-shards 2` on a world of 4 (a 2 x 2 grid):
+  rank 0 prints; its 2-D checkpoint holds the rows the port's
+  single-device Trainer trains on the same global batches (ids, freq and
+  last exact, values and accumulators within rtol 1e-5 / atol 1e-6: the
+  grid sums a batch's terms in another order); with --spill host it
+  evicts and spills from column 0; --col-shards must divide the world."""
 
+import dataclasses
 import json
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 import torch
-from _torch_cli_parity import REPO, TOL, call, free_port, json_lines
+from _torch_cli_parity import TOL, call, json_lines, rows_by_id, run_world
 
 from meepoembedding_tpu_torch import cli as tcli
 from meepoembedding_tpu_torch.data.criteo import write_synthetic_criteo
+from meepoembedding_tpu_torch.train import Trainer
 
 torch.set_num_threads(1)
 
@@ -36,31 +41,6 @@ S = 2
 SETS = ["run.batch_size=256", "table.capacity=65536", "table.dim=16",
         "model.num_sparse_features=26", "model.num_dense_features=13",
         "model.bottom_mlp=32,16", "model.top_mlp=32,1"]
-
-
-def run_world(argv: list, timeout: float = 120.0) -> list:
-    """(exit code, stdout, stderr) of each rank of a world of S running
-    `python -m meepoembedding_tpu_torch <argv> --device cpu`."""
-    base = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", MASTER_ADDR="127.0.0.1",
-                MASTER_PORT=str(free_port()), WORLD_SIZE=str(S))
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "meepoembedding_tpu_torch", *argv, "--device", "cpu"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
-        env=dict(base, RANK=str(r), LOCAL_RANK=str(r))) for r in range(S)]
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=timeout)
-            outs.append((p.returncode, out, err))
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        errs = [p.communicate()[1][-3000:] for p in procs]
-        raise AssertionError("world timed out:\n" + "\n".join(
-            f"rank {r} of {S}:\n{e}" for r, e in enumerate(errs)))
-    for r, (rc, _, err) in enumerate(outs):
-        assert rc == 0, f"rank {r} of {S} failed:\n{err[-3000:]}"
-    return outs
 
 
 @pytest.fixture(scope="module")
@@ -124,3 +104,61 @@ def test_distributed_serve_equals_single_device(world):
         p = np.asarray(w["scores"])
         np.testing.assert_allclose(g["scores"], np.concatenate([p[0::2], p[1::2]]), **TOL)
         np.testing.assert_allclose(g["mean_score"], w["mean_score"], **TOL)
+
+
+@pytest.fixture(scope="module")
+def grid(world, tmp_path_factory):
+    """(the 2-D checkpoint, the ranks' outputs) of a 4-step `train
+    --distributed --col-shards 2` on a world of 4, and the ranks' outputs of
+    a 6-step one with --spill host and LFU/TTL eviction."""
+    data = world[0]
+    ck = str(tmp_path_factory.mktemp("grid") / "ck")
+    base = ["train", "--distributed", "--col-shards", "2", "--data", data]
+    plain = run_world(base + ["--ckpt-dir", ck, "--set", "run.steps=4", "run.log_every=2",
+                              *SETS], world=4)
+    spill = run_world(base + ["--spill", "host", "--maintenance-every", "2", "--set",
+                              "run.steps=6", "run.log_every=2", "table.policy.evict_policy=lfu_ttl",
+                              "table.policy.ttl_steps=1", *SETS], world=4)
+    return ck, plain, spill
+
+
+def test_col_sharded_train_matches_the_single_device_trainer(world, grid, tmp_path):
+    data = world[0]
+    ck, outs, _ = grid
+    assert all(out == "" for _, out, _ in outs[1:])
+    lines = json_lines(outs[0][1])
+    assert lines[-1]["steps"] == 4 and lines[-2]["route_drops"] == 0
+    with open(f"{ck}/manifest.json") as f:
+        m = json.load(f)
+    assert (m["num_shards"], m["col_shards"], m["dim"], m["step"]) == (2, 2, 16, 4)
+    run_cfg, table_cfg, model_cfg = tcli.load_configs(None, ["run.steps=4", *SETS])
+    model_cfg = dataclasses.replace(model_cfg, embedding_dim=table_cfg.dim)
+    tr = Trainer(run_cfg, table_cfg, model_cfg, device="cpu")
+    for batch in tcli.make_train_stream(data, run_cfg, model_cfg, 0, 1).batches(4):
+        tr.train_step(batch)
+    single = str(tmp_path / "single")
+    tr.save_checkpoint(single)
+    got, want = rows_by_id(ck), rows_by_id(single)
+    assert sorted(got) == sorted(want) and len(got["ids"]) == lines[-2]["rows"] > 0
+    for k in want:
+        if k in ("ids", "freq", "last"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        else:
+            np.testing.assert_allclose(got[k], want[k], **TOL, err_msg=k)
+
+
+def test_col_sharded_train_spills_from_column_zero(grid):
+    _, _, outs = grid
+    assert all(out == "" for _, out, _ in outs[1:])
+    lines = json_lines(outs[0][1])
+    last = [x for x in lines if "loss" in x][-1]
+    assert lines[-1]["steps"] == 6 and last["evictions"] > 0
+    assert last["spills"] == last["evictions"] and last["route_drops"] == 0
+
+
+def test_col_shards_must_divide_the_world(monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(SystemExit, match="must divide the world of 2"):
+        tcli.main(["train", "--distributed", "--col-shards", "3", "--device", "cpu",
+                   "--set", *SETS])

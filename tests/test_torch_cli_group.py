@@ -4,6 +4,14 @@ package's, on one device: `train` (fresh and `--restore`), batch `serve`,
 `main`s in-process on the same inputs (the port's with `--device cpu`);
 and the port's `serve --http` of that checkpoint in a subprocess.
 
+With --distributed over a world of 2 gloo ranks (`run_world`), on a
+Criteo-shaped group whose ranks read lines i % 2 == rank: `train` writes
+the rows the port's single-device GroupTrainer trains on the same global
+batches (a fresh sharded run cannot match the reference's, whose one
+process reads whole batches); `eval` and `serve` of the JAX-written group
+checkpoint give the single-device port's results, which the tests above
+hold against the reference's.
+
 Exact: the steps, the members' ids, freq and last, their counts and
 counters, the inspected manifests (not the generation names), eval's
 examples and batches. Within rtol 1e-5 / atol 1e-6 (`test_torch_group.py`'s
@@ -27,11 +35,14 @@ from _torch_cli_parity import (
     json_lines,
     post,
     rows_by_id,
+    run_world,
 )
 
 from meepoembedding_tpu import cli as jcli
 from meepoembedding_tpu_torch import checkpoint as tckpt
 from meepoembedding_tpu_torch import cli as tcli
+from meepoembedding_tpu_torch.data.criteo import write_synthetic_criteo
+from meepoembedding_tpu_torch.group_train import GroupTrainer
 from meepoembedding_tpu_torch.serving_group import GroupScoringService
 
 torch.set_num_threads(1)
@@ -150,3 +161,83 @@ def test_group_serve_http_answers_score(group):
         got = post(port, "/score", {"dense": dense.tolist(), "ids": ids.tolist()})["scores"]
     np.testing.assert_allclose(got, svc.score(dense, ids), atol=1e-6)
     assert os.path.exists(os.path.join(ck, "group.json"))
+
+
+CRITEO_GROUP_YAML = """
+tables:
+  user: {dim: 16, capacity: 16384}
+  item: {dim: 8, capacity: 16384, optimizer: {kind: ftrl, learning_rate: 0.05}}
+feature_map: [%s]
+run: {steps: 4, batch_size: 256, log_every: 2}
+model: {num_dense_features: 13, top_mlp: [32, 1]}
+""" % ", ".join(["user"] * 13 + ["item"] * 13)
+
+
+@pytest.fixture(scope="module")
+def criteo_group(tmp_path_factory):
+    """(the YAML, 1,024 Criteo lines, a group checkpoint the JAX CLI trained
+    on them for 4 steps)."""
+    d = tmp_path_factory.mktemp("criteo_group")
+    (d / "group.yaml").write_text(CRITEO_GROUP_YAML)
+    cfg, data, ck = str(d / "group.yaml"), str(d / "day.tsv"), str(d / "gck")
+    write_synthetic_criteo(data, 1024, seed=6)
+    rc, out, _ = call(jcli.main, ["train", "--config", cfg, "--data", data, "--ckpt-dir", ck])
+    assert rc == 0 and json_lines(out)[-1]["steps"] == 4
+    return cfg, data, ck
+
+
+def test_group_distributed_train_matches_the_single_device_trainer(criteo_group, tmp_path):
+    cfg, data, _ = criteo_group
+    ck = str(tmp_path / "dist")
+    outs = run_world(["train", "--distributed", "--config", cfg, "--data", data,
+                      "--ckpt-dir", ck])
+    assert outs[1][1] == ""
+    lines = json_lines(outs[0][1])
+    assert lines[-1]["steps"] == 4 and [x["step"] for x in lines[:-1]] == [2, 4]
+    with open(f"{ck}/group.json") as f:
+        assert json.load(f)["num_shards"] == 2
+    run_cfg, tables, fmap, model_cfg = tcli.load_group_configs(cfg)
+    tr = GroupTrainer(run_cfg, tables, fmap, model_cfg, device="cpu")
+    for batch in tcli.make_train_stream(data, run_cfg, model_cfg, 0, 1).batches(4):
+        tr.train_step(batch)
+    tr.save_checkpoint(str(tmp_path / "single"))
+    for name in MEMBERS:
+        got = rows_by_id(f"{ck}/table-{name}")
+        want = rows_by_id(str(tmp_path / "single" / f"table-{name}"))
+        assert sorted(got) == sorted(want)
+        assert len(got["ids"]) == lines[-2]["rows"][name] > 0
+        for k in want:
+            if k in ("ids", "freq", "last"):
+                np.testing.assert_array_equal(got[k], want[k], err_msg=f"{name} {k}")
+            else:
+                np.testing.assert_allclose(got[k], want[k], **TOL, err_msg=f"{name} {k}")
+
+
+def test_group_distributed_eval_equals_single_device(criteo_group):
+    cfg, data, ck = criteo_group
+    argv = ["eval", "--config", cfg, "--ckpt", ck, "--data", data]
+    ranks = run_world(argv[:1] + ["--distributed"] + argv[1:])
+    assert ranks[1][1] == ""
+    got = json_lines(ranks[0][1])[-1]
+    rc, out, _ = call(tcli.main, argv + ["--device", "cpu"])
+    want = json_lines(out)[-1]
+    assert rc == 0 and got["eval_route_drops"] == 0
+    assert (got["examples"], got["batches"]) == (want["examples"], want["batches"]) == (1024, 4)
+    assert abs(got["auc"] - want["auc"]) <= 1e-9
+    np.testing.assert_allclose(got["mean_loss"], want["mean_loss"], rtol=1e-5)
+
+
+def test_group_distributed_serve_equals_single_device(criteo_group):
+    cfg, data, ck = criteo_group
+    argv = ["serve", "--config", cfg, "--ckpt", ck, "--data", data, "--emit", "256",
+            "--set", "run.steps=3"]
+    ranks = run_world(argv[:1] + ["--distributed"] + argv[1:])
+    assert ranks[1][1] == "" and "serve_latency_ms" in ranks[0][2]
+    rc, out, _ = call(tcli.main, argv + ["--device", "cpu"])
+    got, want = json_lines(ranks[0][1]), json_lines(out)
+    assert rc == 0 and len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        # rank 0 scored the batch's even lines, rank 1 its odd ones
+        p = np.asarray(w["scores"])
+        np.testing.assert_allclose(g["scores"], np.concatenate([p[0::2], p[1::2]]), **TOL)
+        np.testing.assert_allclose(g["mean_score"], w["mean_score"], **TOL)

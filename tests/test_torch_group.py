@@ -372,7 +372,7 @@ def test_table_group_matches_jax(tmp_path):
         TableGroup({"user": group(tc)["user"]}, device="cpu").load(str(tmp_path / "jax"))
 
 
-def test_group_scoring_matches_jax_and_http(trained):
+def test_group_scoring_matches_jax_and_http(trained, monkeypatch):
     jt, _, root = trained
     args = (tables(tc, dict(capacity=1 << 8, grow_at_load=0.6)), FEATURES, model(tc))
     svc = GroupScoringService(str(root / "jax"), run(tc), *args, device="cpu")
@@ -386,8 +386,25 @@ def test_group_scoring_matches_jax_and_http(trained):
         got = svc.score(bt["dense"], bt["ids"])
         assert got.shape == (b,)
         np.testing.assert_allclose(got, jsvc.score(bt["dense"], bt["ids"]), **TOL)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        GroupScoringService(str(root / "jax"), run(tc), *args, distributed=True, device="cpu")
+    # distributed=True on a world of one: the members behind the forced
+    # exchange score what the single-device service scores
+    from meepoembedding_tpu_torch.parallel import mesh as pmesh
+    from meepoembedding_tpu_torch.parallel import sharded_table as st
+
+    joined = not torch.distributed.is_initialized()
+    monkeypatch.setattr(st, "FORCE_EXCHANGE", True)
+    try:
+        dsvc = GroupScoringService(str(root / "jax"), run(tc), *args, distributed=True,
+                                   device="cpu")
+        assert dsvc.S == 1 and dsvc.stats() == svc.stats()
+        for b, bag in ((64, 1), (13, 1), (8, 4)):
+            bt = batch(rng, bag, users=6000, items=400, b=b)
+            np.testing.assert_allclose(dsvc.score(bt["dense"], bt["ids"]),
+                                       svc.score(bt["dense"], bt["ids"]), **TOL)
+        assert dsvc.route_drops == 0
+    finally:
+        if joined:
+            pmesh.destroy()
 
     srv = make_http_server(svc, 0)
     th = threading.Thread(target=srv.serve_forever, daemon=True)

@@ -132,17 +132,33 @@ def test_http_round_trip(ckpt):
     assert not thread.is_alive()
 
 
-def test_unported_paths_raise(ckpt):
-    """What is still unported, or refused, raises: the row-sharded group
-    service (the distributed layer), a quantizer other than int8, an
-    unknown model kind."""
+def test_unported_paths_raise(ckpt, tmp_path):
+    """What is refused raises: a quantizer other than int8, an unknown
+    model kind. The row-sharded group service, once refused here, scores on
+    a world of one what the single-device service scores."""
     from meepoembedding_tpu_torch.config import RunConfig
+    from meepoembedding_tpu_torch.group_train import GroupTrainer
+    from meepoembedding_tpu_torch.parallel import mesh as pmesh
     from meepoembedding_tpu_torch.serving_group import GroupScoringService
 
     path, _ = ckpt
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        GroupScoringService(path, RunConfig(), {"t": TableConfig(**TABLE)}, ["t"] * 3,
-                            ModelConfig(**MODEL), distributed=True, device="cpu")
+    args = (RunConfig(batch_size=32), {"t": TableConfig(**TABLE)}, ["t"] * 3,
+            ModelConfig(**MODEL))
+    rng = np.random.default_rng(3)
+    dense = rng.standard_normal((32, 4)).astype(np.float32)
+    ids = rng.integers(0, 500, (32, 3)).astype(np.int64)
+    gt = GroupTrainer(*args, device="cpu")
+    gt.train_step({"dense": dense, "ids": ids, "label": np.ones(32, np.float32)})
+    gt.save_checkpoint(str(tmp_path / "g"))
+    joined = not torch.distributed.is_initialized()
+    try:
+        want = GroupScoringService(str(tmp_path / "g"), *args, device="cpu").score(dense, ids)
+        got = GroupScoringService(str(tmp_path / "g"), *args, distributed=True,
+                                  device="cpu").score(dense, ids)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    finally:
+        if joined:
+            pmesh.destroy()
     with pytest.raises(ValueError, match=r"none\|int8"):
         ScoringService(path, TableConfig(**TABLE), ModelConfig(**MODEL), quantize="int4",
                        device="cpu")
@@ -152,9 +168,10 @@ def test_unported_paths_raise(ckpt):
 
 def test_chip_smoke_rehearses_on_cpu():
     """The card script's serve phase (checkpoint, restore, fill, requests,
-    row and score checks, HTTP), int8, sharded (a gloo world of one), train
-    and lifecycle phases (eviction into a spill tier, remove, promotion,
-    checkpoints, growth), the zoo, embed, retrieval and group phases, and
+    row and score checks, HTTP), int8, sharded (a gloo world of one),
+    colsharded (two rank processes), train and lifecycle phases (eviction
+    into a spill tier, remove, promotion, checkpoints, growth), the zoo,
+    embed, retrieval, group and group_sharded phases, and
     the cli phase (train through `python -m`, export and import, card vs
     CPU, the bench commands, serve and eval of the serve checkpoint) at a
     tiny size with the plain versions. It must exit non-zero and print no
@@ -185,6 +202,11 @@ def test_chip_smoke_rehearses_on_cpu():
     assert "cli: eval and serve, cpu against the CPU" in out.stdout
     assert '"metric": "update_ids_per_sec_per_chip"' in out.stdout
     assert "equal to the service's scores' AUC and loss" in out.stdout
+    assert "colsharded small copy: 3 steps" in out.stdout
+    assert "accumulator bit-identical across the columns" in out.stdout
+    assert "their full rows and accumulators equal the payloads bit for bit" in out.stdout
+    assert "check group_sharded parity (ragged exchange" in out.stdout
+    assert "GroupScoringService(distributed=True) scores 32 requests" in out.stdout
     assert "rehearsal finished" in out.stdout
     assert '"ok": true' not in out.stdout
     assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke"))

@@ -285,6 +285,10 @@ def test_promotion_matches_jax_table():
     ids = rng.integers(1, 2**62, size=700, dtype=np.int64)
     for t in (jt, tt):
         t.lookup(ids, train=True)
+        # the promoter's worker reads this lookup's misses against the cold
+        # tier on its own thread: let it finish before the eviction below
+        # fills the tier, or a late read would stage the evicted rows
+        t._promoter.flush(timeout=60)
         t.step = 10
     assert tt.evict() == jt.evict() > 0
     assert _store(tspill).keys() == _store(jspill).keys()
