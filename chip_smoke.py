@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch + CUDA port's serving (f32 and int8), row-sharded,
 column-sharded, training, table-lifecycle, model-zoo, embed-API, retrieval,
-table-group (single-device and sharded) and command-line paths on one card
-and check them.
+table-group (single-device and sharded), command-line, HTTP-over-S-ranks
+and entry-point paths on one card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -44,6 +44,12 @@ Phases (any failure exits non-zero and prints no result line):
            tower on the CPU, and one POST /score against the direct score.
            Fails unless a request launches 4 row_gather (the probe's 2
            round groups, each both key planes; the values; the inverse).
+           Right after the restore, before the fill, it makes the
+           sharded_http phase's requests (5 warm-up and 32 timed of 4096 x
+           26 ids of the checkpoint, 10% unknown, and one of 37 rows),
+           scores them, keeps them and their scores in
+           build/chip_smoke_http/, and times them as POST /score to its own
+           HTTP server (each reply equal to the direct score).
   int8     with the counters set to 0 just before it, on the serve phase's
            checkpoint (8,388,608 rows, dim 32): an int8 ScoringService
            (QuantizedTable.from_checkpoint); the 2^20 kept rows read back
@@ -152,7 +158,12 @@ Phases (any failure exits non-zero and prints no result line):
            index_add_), the segment sum's walk and combine pass apart, a
            check that the step's valid slots are unique, the 32-byte-sector
            bound of the 4-byte-row shapes, and the host time of one call
-           of every wrapper. Also the int8 lookup's two gathers (the codes'
+           of every wrapper. The device time of a call and of its kernel
+           comes from torch.profiler over a pass after a warm-up pass, kept
+           only from a session that recorded every launch the wrappers made
+           (else null), and null where it reads below the bytes bound; the
+           values gather is also timed under the other ways of tracing
+           (`profiler_methods`). Also the int8 lookup's two gathers (the codes'
            [N, 8] int32 view, the [N, 4] side plane) at 8 requests'
            positions, and, after the group phase, the user member's
            [2^24, 64] values gather and add and the FTRL item member's
@@ -223,7 +234,10 @@ Phases (any failure exits non-zero and prints no result line):
            apart), times 30 requests of 256 queries at k = 100 and logs
            evaluate's recall@{1,10,100} on the held-out batches; POST
            /retrieve equals retrieve. Fails unless an index lookup or a
-           request launches 4 row_gather (f32) or 2 (int8).
+           request launches 4 row_gather (f32) or 2 (int8). The f32
+           service also answers one request over the corpus cut to its
+           first 2^16 items, which the sharded_http phase holds its
+           /retrieve to; the checkpoint stays for that phase.
   group    with the counters set to 0 just before it. (a) 3 GroupTrainer
            steps of 512 x 26 ids, card and CPU from one state, planes and
            counters equal. (b) A GroupTrainer at config 2's width (13 dense,
@@ -253,7 +267,45 @@ Phases (any failure exits non-zero and prints no result line):
            restored into a GroupTrainer with every row equal, and
            GroupScoringService(distributed=True) against the single-device
            service on it: 32 requests of 4096 examples, scores within rtol
-           1e-6, request p50 of both.
+           1e-6, request p50 of both. The checkpoint and the single-device
+           scores of its first request stay for the sharded_http phase.
+  sharded_http  one HTTP front over S = 2 row-sharded ranks
+           (`serving_sharded.LockstepFront`): two rank processes of this
+           script (`--front-rank`) on the one card in a gloo group (NCCL
+           refuses two ranks on one device; gloo stages the collectives,
+           the exchange's all-to-alls among them, through the host, so this
+           prices the front and not a wire). It runs last, when this
+           process holds no table. Each rank sets its counters to 0 just
+           before its main path. Rank 0 serves HTTP on a free port; this
+           process is the client, and a line to rank 0's standard input
+           stops each part (the stop op; both ranks must return 0). (a)
+           The serve checkpoint (8,388,608 rows, dim 32) restored over the
+           two ranks at config 2's capacity, 2^26 slots a rank (~2 x 9.3
+           GiB): /healthz rows equal the checkpoint's; the serve phase's 5
+           + 32 requests and the one of 37 rows, each reply equal to its
+           single-device score (rtol 1e-5, atol 1e-6), the 32 timed (p50 /
+           p99 beside the serve phase's single-device HTTP p50 / p99);
+           /metrics shows 2 mesh devices and no route drops; a malformed
+           body gets a 400 and the next request answers; /reload of the
+           checkpoint keeps its rows; /reload of a missing path gets a 400
+           and the scores stay the same. (b) The retrieval phase's
+           two-tower over the two ranks; rank 0 builds a RetrievalService
+           index of the corpus cut to 2^16 items through the front;
+           /retrieve equals the single-device keys (scores within rtol
+           1e-5, atol 1e-6). (c) The group_sharded phase's members (2^20
+           slots) in a GroupScoringService(distributed=True) a rank; one
+           request of 4096 examples equals the single-device scores. Fails
+           unless every score or lookup call on a rank launches 5
+           row_gather (the sharded phase's request: the probe's 2, the
+           values, the returning rows, the inverse; a group request 5 a
+           member) and nothing else.
+  entry    the entry points (`meepoembedding_tpu_torch/entry.py`):
+           `entry(device="cuda")`'s forward over the batch's rows (inserted
+           from --seed) equals the same forward on the CPU through the
+           plain versions (rtol 1e-5, atol 1e-6), failing unless it
+           launches 4 row_gather and nothing else; then
+           `dryrun_multichip(torch.cuda.device_count())`, a world of one
+           over NCCL in a spawned process.
   cli      the command line (`python -m meepoembedding_tpu_torch`), in two
            parts, each with the counters set to 0 just before it. (a) Right
            after the kernel checks, where the script holds the least device
@@ -292,9 +344,10 @@ a fresh table of --capacity slots, bags of 4, 1 + 2 steps; a 2^12-item
 index; 2^12- to 2^14-slot group members; the cli phase's train, restore
 and bench at --capacity slots and --batch examples, 1 + 2 steps; the
 colsharded ranks on the CPU at --capacity slots; the sharded groups at
-2^12- to 2^13-slot members) with the plain versions and
-exits 1 without a result: a dry run of the control flow on machines without
-a card.
+2^12- to 2^13-slot members; the sharded_http ranks on the CPU at --capacity
+slots; the entry's dry run on one gloo rank) with the plain versions and,
+with torch held to one thread in every process it starts, exits 1 without
+a result: a dry run of the control flow on machines without a card.
 """
 
 from __future__ import annotations
@@ -305,6 +358,7 @@ import copy
 import dataclasses
 import gc
 import hashlib
+import inspect
 import io
 import json
 import os
@@ -313,6 +367,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -367,7 +422,7 @@ from meepoembedding_tpu_torch.parallel.colsharded import ColShardedTrainer
 from meepoembedding_tpu_torch.parallel.mesh import make_mesh
 from meepoembedding_tpu_torch.parallel.trainer import ShardedTrainer
 from meepoembedding_tpu_torch.retrieval import RetrievalService
-from meepoembedding_tpu_torch.serving_sharded import ShardedScoringService
+from meepoembedding_tpu_torch.serving_sharded import LockstepFront, ShardedScoringService
 from meepoembedding_tpu_torch.serving_group import GroupScoringService
 from meepoembedding_tpu_torch.table import hashing, table_ops
 from meepoembedding_tpu_torch.table.layout import TableSpec, alloc_shard
@@ -401,7 +456,18 @@ def parse_args():
     p.add_argument("--col-rank", type=int, default=None,
                    help="run one rank of the colsharded phase (the phase starts them)")
     p.add_argument("--col-dir", default=None, help="the colsharded ranks' meeting directory")
+    p.add_argument("--front-rank", type=int, default=None,
+                   help="run one rank of the sharded_http phase (the phase starts them)")
+    p.add_argument("--front-dir", default=None, help="the sharded_http ranks' meeting directory")
     return p.parse_args()
+
+
+def cap_cpu_threads() -> None:
+    """A rehearsal runs beside other work on the CPU: one torch thread here
+    and, through the environment, in every process it starts (the rank
+    processes, the command line's subprocesses)."""
+    os.environ["OMP_NUM_THREADS"] = "1"
+    torch.set_num_threads(1)
 
 
 def card_line() -> str:
@@ -882,10 +948,27 @@ def delta(before: dict, calls: int) -> str:
 
 
 def post_json(server, path: str, body: dict) -> dict:
-    url = f"http://127.0.0.1:{server.server_address[1]}{path}"
-    req = urllib.request.Request(url, data=json.dumps(body).encode())
-    with urllib.request.urlopen(req, timeout=120) as r:
-        return json.loads(r.read())
+    """The reply of a POST of `body` as JSON to `server`; raises unless 200."""
+    code, rep = http_call(server.server_address[1], path, json.dumps(body).encode())
+    if code != 200:
+        raise AssertionError(f"POST {path}: {code} {rep}")
+    return rep
+
+
+def http_call(port: int, path: str, data: bytes = None):
+    """(status, reply) of a GET (no data) or POST to 127.0.0.1:port; the
+    reply parsed as JSON, /metrics' as text. A 4xx is returned, not raised."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, text = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        code, text = e.code, e.read().decode()
+    return code, (text if path == "/metrics" else json.loads(text))
+
+
+def score_body(dense, ids) -> bytes:
+    return json.dumps({"dense": dense.tolist(), "ids": ids.tolist()}).encode()
 
 
 def serving(svc, fn, retrieval=None):
@@ -931,6 +1014,9 @@ def serve(args, dev, rng, card: str) -> dict:
     log(f"serve: restored {len(table)} rows in {restore_s:.2f} s "
         f"({args.ckpt_rows / restore_s:.0f} rows/s) in {nbatch} batches; launches per "
         f"batch: {delta(at, nbatch)}; counters {table.counters()}")
+
+    # the sharded_http phase's requests, scored here on the checkpoint alone
+    http_single = serve_http_reference(args, svc, written["ids"][:keep], model_cfg, card)
 
     # fill toward the target live rows with table.assign, data made on the device
     g = torch.Generator(device=dev).manual_seed(args.seed + 1)
@@ -1043,7 +1129,49 @@ def serve(args, dev, rng, card: str) -> dict:
     np.testing.assert_allclose(http_scores, scores[0], atol=1e-6)
     log("serve: POST /score matches the direct score")
     return {"svc": svc, "requests": reqs[3:], "assigned": kept_ids, "ckpt": ckpt,
-            "written": {"ids": written["ids"][:keep], "values": written["values"]}}
+            "written": {"ids": written["ids"][:keep], "values": written["values"]},
+            "http_single": http_single}
+
+
+HTTP_DIR = ROOT / "build" / "chip_smoke_http"  # what the sharded_http phase reads
+HTTP_WARM = 5  # warm-up requests of the HTTP timings
+
+
+def serve_http_reference(args, svc, ids_pool, mc, card: str) -> dict:
+    """The sharded_http phase's /score requests: HTTP_WARM warm-up and
+    --requests timed ones of --batch x 26 ids of the checkpoint (10%
+    unknown), and one of 37 rows. Their scores by `svc` (the checkpoint
+    alone) go to HTTP_DIR with them; each POST /score to `svc`'s own
+    server must equal them. Returns the single-device HTTP p50/p99."""
+    rng = np.random.default_rng(args.seed + 131)
+    nd, ns = mc.num_dense_features, mc.num_sparse_features
+    reqs = [(rng.standard_normal((b, nd), dtype=np.float32), make_request(rng, [ids_pool], b, ns))
+            for b in [args.batch] * (HTTP_WARM + args.requests) + [37]]
+    scores = [svc.score(d, i) for d, i in reqs]
+    bodies = [score_body(d, i) for d, i in reqs]
+
+    def post_all(server):
+        lat = []
+        for body, want in zip(bodies, scores):
+            t0 = time.perf_counter()
+            code, rep = http_call(server.server_address[1], "/score", body)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if code != 200:
+                raise AssertionError(f"single-device POST /score: {code} {rep}")
+            np.testing.assert_allclose(rep["scores"], want, rtol=1e-5, atol=1e-6)
+        return lat
+
+    lat = np.asarray(serving(svc, post_all)[HTTP_WARM:HTTP_WARM + args.requests])
+    HTTP_DIR.mkdir(parents=True, exist_ok=True)
+    arrays = {}
+    for j, ((d, i), p) in enumerate(zip(reqs, scores)):
+        arrays.update({f"dense{j}": d, f"ids{j}": i, f"scores{j}": p})
+    np.savez(HTTP_DIR / "serve_ref.npz", **arrays)
+    out = {"p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99))}
+    log(f"serve: {len(lat)} POST /score of {args.batch} x {ns} ids to the single-device service "
+        f"on the checkpoint: p50 {out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms on {card}; "
+        f"{len(reqs)} requests' scores kept for the sharded_http phase")
+    return out
 
 
 def train(args, table, dev, card: str) -> dict:
@@ -1150,31 +1278,119 @@ def device_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
+# the __global__ functions of the repo's kernels: a wrapper's launch is one of them
+OUR_KERNELS = ("row_gather_vecs", "row_set_kernel", "row_add_vecs", "add_unique",
+               "segment_walk", "segment_combine")
+PROFILE_SESSIONS = 3  # profiler sessions device_ms tries before "not measured"
+L2_FLUSH_WORDS = 1 << 26  # 256 MB of int32, five times the 50 MB L2
+
+
+def recorded_launches(evs) -> int:
+    return sum(e.count for e in evs if any(k in e.key for k in OUR_KERNELS))
+
+
+def event_ms(fns) -> float:
+    """Device time of one call: the median, over one pass through `fns`, of
+    CUDA events around the call, each call behind an L2 flush (a 256 MB
+    write, `bitwise_not_`). No call finds the rows of the call before in
+    the L2, and the device is still busy with the flush (about 160 us)
+    while the host enqueues the call, so the events time its device work
+    and the gap before its first kernel, not its host side."""
+    buf = torch.zeros(L2_FLUSH_WORDS, dtype=torch.int32, device="cuda")
+    marks = []
+    for fn in fns:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        buf.bitwise_not_()
+        a.record()
+        fn()
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in marks]))
+
+
+def profile_pass(fns, host: bool = True, flush: bool = True, warmup: bool = True):
+    """One torch.profiler session over a pass through `fns` (tracing the
+    host too with `host`; with `flush`, a 256 MB write, `bitwise_not_`,
+    before each call; with `warmup`, an untraced pass first, the profiler's
+    warm-up step): (the device events of the traced pass but the flush's
+    and the step's span, the launches of the repo's kernels it recorded,
+    the launches the wrappers made in it)."""
+    buf = torch.zeros(L2_FLUSH_WORDS if flush else 1, dtype=torch.int32, device="cuda")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1) if warmup else None
+    torch.cuda.synchronize()
+    with profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2 if warmup else 1):
+            made = sum(launches().values())
+            for fn in fns:
+                if flush:
+                    buf.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+            made = sum(launches().values()) - made
+            if warmup:
+                prof.step()
+    # the schedule's ProfilerStep spans the whole pass on the device too
+    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+           and "bitwise_not" not in e.key and not e.key.startswith("ProfilerStep")]
+    return evs, recorded_launches(evs), made
+
+
 def device_ms(fns, kernel: str):
     """Device time of one call under torch.profiler, over one pass through
-    `fns`: all the device work the call launches, and the part spent in the
-    kernel named `kernel`."""
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn in fns:
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    total = sum(device_us(e) for e in evs) / len(fns) / 1e3
-    mine = sum(device_us(e) for e in evs if kernel in e.key) / len(fns) / 1e3
-    return total, mine
+    `fns` (`profile_pass`: the host traced too, a warm-up pass first, the
+    L2 as the rotating inputs leave it): all the device work the call
+    launches, and the part spent in the kernel named `kernel`. A session
+    counts only if it recorded every launch the wrappers made in it:
+    sessions lose launches, and a pass divided by its calls then reads
+    below the bytes bound. (None, None) after `PROFILE_SESSIONS` that did
+    not: not measured."""
+    for _ in range(PROFILE_SESSIONS):
+        evs, seen, made = profile_pass(fns, flush=False)
+        if seen == made > 0:
+            return (sum(device_us(e) for e in evs) / len(fns) / 1e3,
+                    sum(device_us(e) for e in evs if kernel in e.key) / len(fns) / 1e3)
+    return None, None
+
+
+def profiler_methods(label: str, fns, kernel: str) -> None:
+    """Log the device time a call of `fns` under each way of timing it:
+    the events behind an L2 flush (`event_ms`), and the profiler's reading
+    of the kernel named `kernel` with the device traced alone or with the
+    host, the L2 warm or flushed, with or without a warm-up pass, beside
+    the launches each session recorded of those the wrappers made and the
+    time of a recorded launch: what moves a reading below the bytes
+    bound."""
+    parts = [f"events, L2 flushed: {event_ms(fns):.4f} ms"]
+    for host, flush, warmup in ((False, False, False), (True, False, False),
+                                (True, True, False), (True, True, True)):
+        evs, seen, made = profile_pass(fns, host=host, flush=flush, warmup=warmup)
+        us = sum(device_us(e) for e in evs if kernel in e.key)
+        per = f"{us / seen / 1e3:.4f}" if seen else "-"
+        parts.append(f"profiler, {'host+device' if host else 'device'}, L2 "
+                     f"{'flushed' if flush else 'warm'}, {'a' if warmup else 'no'} warm-up "
+                     f"pass: {us / len(fns) / 1e3:.4f} ms ({seen} of {made} launches "
+                     f"recorded; {per} ms a recorded one)")
+    log(f"profiler methods [{label}]: " + "; ".join(parts))
 
 
 def entry(label, shape, nbytes, kernel, plain, library, check, kname) -> dict:
     """One timing record: kernel, plain and library times (lists of calls on
     rotating inputs; CUDA events around 24 calls, so a call whose host side
     outlasts its device work is timed by its host side), the device time of
-    one wrapper call and of its kernel alone (profiler), the bytes bound and
-    the checked max_abs_err."""
-    call_ms, kernel_ms = device_ms(kernel, kname)
-    e = {"label": label, "shape": shape, "ms": time_ms(kernel), "device_ms": call_ms,
-         "kernel_ms": kernel_ms, "plain_ms": time_ms(plain), "library_ms": time_ms(library),
-         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_err": check()}
+    one wrapper call and of its kernel alone (`device_ms`; None where not
+    measured, and each None where it read below the bytes bound), the
+    bytes bound and the checked max_abs_err."""
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    dev = dict(zip(("device_ms", "kernel_ms"), device_ms(kernel, kname)))
+    for k, ms in dev.items():
+        if ms is not None and ms < bound_ms:  # not a time of the HBM traffic
+            log(f"timing [{label}]: {k} {ms:.4f} below its bound {bound_ms:.4f} ms: not kept")
+            dev[k] = None
+    e = {"label": label, "shape": shape, "ms": time_ms(kernel), **dev,
+         "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+         "bound_ms": bound_ms, "max_abs_err": check()}
     torch.cuda.empty_cache()
     return e
 
@@ -1234,12 +1450,16 @@ def host_time(name: str, fn, calls: int = 200) -> None:
     log(f"host {name}: {us:.2f} us a call")
 
 
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def log_timings(out) -> None:
     for name, e in out:
         sector = (f", {e['sector_bound_ms']:.4f} ms (32-byte sectors)"
                   if "sector_bound_ms" in e else "")
         log(f"timing {name} [{e['label']}] {e['shape']}: kernel {e['ms']:.4f} ms (device "
-            f"{e['device_ms']:.4f} ms a call, {e['kernel_ms']:.4f} ms in the kernel), "
+            f"{fmt_ms(e['device_ms'])} a call, {fmt_ms(e['kernel_ms'])} in the kernel), "
             f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, "
             f"bound {e['bound_ms']:.4f} ms (bytes){sector}; max |kernel - plain| "
             f"{e['max_abs_err']}")
@@ -1279,6 +1499,8 @@ def time_kernels(svc, requests, seed: int) -> list:
             row_scatter_set_plain(want, i, upd)
         return max_abs_err("row_scatter_set", got, want)
 
+    profiler_methods("values per request", [lambda i=i: row_gather(shard.values, i)
+                                            for i in slots], "row_gather_")
     out.append(("row_gather", gather_entry("values per request", shard.values, slots)))
     out.append(("row_gather", gather_entry(
         "key pairs (key_hi, key_lo) per probe round group", pairs, pgs)))
@@ -1499,7 +1721,7 @@ def time_train_kernels(tr, batch, seed: int) -> list:
     seg_fns = [lambda x=x: dedup.segment_sum_grads(x, inv, U, order, sids) for x in grads]
     walk_ms = device_ms(seg_fns, "segment_walk")[1]
     combine_ms = device_ms(seg_fns, "segment_combine")[1]
-    log(f"timing segment sum kernels: walk {walk_ms:.4f} ms, combine {combine_ms:.4f} ms")
+    log(f"timing segment sum kernels: walk {fmt_ms(walk_ms)}, combine {fmt_ms(combine_ms)}")
     out.append(("row_merge_add", entry(
         f"gradient segment sum per step (duplicate rows, the dedup's sort, "
         f"S={segment_size()})",
@@ -1605,11 +1827,13 @@ def run_profiled(name: str, fn, count: int, unit: str) -> None:
     """torch.profiler over `fn` (`count` calls): wall and device busy time per
     call, and the ops with the most device time."""
     torch.cuda.synchronize()
+    made = sum(launches().values())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    made = sum(launches().values()) - made
     ka = prof.key_averages()
     on_device = [e for e in ka if e.device_type.name == "CUDA"]
     busy_us = sum(device_us(e) for e in on_device)
@@ -1617,7 +1841,8 @@ def run_profiled(name: str, fn, count: int, unit: str) -> None:
     top = sorted(ka, key=device_us, reverse=True)[:10]
     log(f"profile {name}: {count} {unit}s, wall {wall_us / count / 1e3:.3f} ms/{unit}, device "
         f"busy {busy_us / count / 1e3:.3f} ms/{unit} ({100 * busy_us / wall_us:.1f}% of wall), "
-        f"{kernels / count:.0f} device kernels and copies per {unit}")
+        f"{kernels / count:.0f} device kernels and copies per {unit}; "
+        f"{recorded_launches(on_device)} of the {made} launches of the repo's kernels recorded")
     for e in top:
         log(f"profile {name}:   {e.key[:70]:70s} {device_us(e) / count:9.1f} us/{unit} "
             f"x{e.count / count:g}")
@@ -2187,6 +2412,7 @@ def time_int8_kernels(q, requests) -> list:
 
 RETR_CAP, RETR_ITEMS = 1 << 23, 1 << 20  # table slots; corpus (bench_retrieval.py's)
 RETR_QUERIES, RETR_K, RETR_REQUESTS = 256, 100, 30  # bench_retrieval.py's defaults
+HTTP_ITEMS = 1 << 16  # the sharded_http phase's corpus: the retrieval corpus cut
 
 
 def check_topk(ret, svc, vecs, dense, qids, k: int, dev) -> float:
@@ -2308,7 +2534,16 @@ def retrieval(args, dev, card: str) -> dict:
                                                                    atol=1e-6):
                     raise AssertionError("POST /retrieve differs from retrieve")
                 log("retrieval: POST /retrieve matches retrieve")
+                # the sharded_http phase's reference: the corpus cut to HTTP_ITEMS
+                cut = RetrievalService(svc)
+                cut.build_index(item_ids[:HTTP_ITEMS])
+                keys, scores = cut.retrieve(d, q, k=RETR_K)
+                HTTP_DIR.mkdir(parents=True, exist_ok=True)
+                np.savez(HTTP_DIR / "retrieval_ref.npz", items=item_ids[:HTTP_ITEMS], dense=d,
+                         ids=q, keys=keys, scores=scores)
+                del cut
             del svc, ret, vecs
+        shutil.move(str(root / "ckpt"), str(HTTP_DIR / "retrieval_ckpt"))
     finally:
         shutil.rmtree(root.parent, ignore_errors=True)
     return out
@@ -3001,6 +3236,8 @@ def col_rank_main(args) -> int:
     the main path with the counters set to 0 just before it; prints its
     results as the last JSON line."""
     rehearse = args.rehearse_on_cpu
+    if rehearse:
+        cap_cpu_threads()
     dev = torch.device("cpu" if rehearse else "cuda")
     root = Path(args.col_dir)
     rank = args.col_rank
@@ -3342,6 +3579,13 @@ def group_sharded_phase(args, group_p50: float, dev, card: str) -> dict:
                                            atol=0)
             if svc.route_drops:
                 raise AssertionError(f"group_sharded service: {svc.route_drops} route drops")
+            # the sharded_http phase's group request and its single-device scores
+            b = more[5]
+            HTTP_DIR.mkdir(parents=True, exist_ok=True)
+            np.savez(HTTP_DIR / "group_ref.npz", dense=b["dense"], ids=b["ids"],
+                     scores=ref.score(b["dense"], b["ids"]))
+            del svc, ref
+            shutil.move(str(root), str(HTTP_DIR / "group_ckpt"))
             out["request_p50_ms"] = float(np.percentile(lat["distributed"][1:], 50))
             out["single_request_p50_ms"] = float(np.percentile(lat["single"][1:], 50))
             rows = sum(c["rows"] for c in tr.counters().values())
@@ -3356,6 +3600,316 @@ def group_sharded_phase(args, group_p50: float, dev, card: str) -> dict:
         st.FORCE_EXCHANGE = False
         pmesh.destroy()
     return out
+
+
+# --- one HTTP front over S ranks ------------------------------------------------------
+
+FRONT_S = 2  # rank processes of the sharded_http phase, on the one card
+FRONT_PARTS = ("score", "retrieve", "group")
+FRONT_CAP = 1 << 27  # config 2's capacity: 2^26 slots a rank (~9.3 GiB)
+
+
+def front_service(part: str, args, mesh, dev):
+    """This rank's service of a sharded_http part, on the checkpoint an
+    earlier phase left in HTTP_DIR."""
+    rehearse = dev.type == "cpu"
+    if part == "score":
+        cfg = TableConfig(dim=32, capacity=args.capacity if rehearse else FRONT_CAP)
+        return ShardedScoringService(str(HTTP_DIR / "serve_ckpt"), cfg, ModelConfig(), mesh=mesh)
+    if part == "retrieve":
+        cfg = TableConfig(dim=32, capacity=args.capacity if rehearse else RETR_CAP)
+        return ShardedScoringService(str(HTTP_DIR / "retrieval_ckpt"), cfg,
+                                     zoo_model_cfg("two_tower"), mesh=mesh)
+    cap = 1 << 13 if rehearse else GROUP_SHARDED_CAP
+    run_cfg = RunConfig(batch_size=args.batch if rehearse else TRAIN_BATCH, steps=5,
+                        seed=args.seed, pipeline_depth=0)
+    return GroupScoringService(str(HTTP_DIR / "group_ckpt"), run_cfg,
+                               group_cfgs({"user": cap, "item": cap, "ctx": cap}),
+                               GROUP_FEATURES, ModelConfig(kind="ctr_mlp"), distributed=True,
+                               mesh=mesh, device=dev)
+
+
+def _count_calls(svc, name: str, record: list) -> None:
+    """Wrap svc.<name> so that each call appends its kernel launches."""
+    fn = getattr(svc, name)
+
+    def call(*a, **k):
+        at = launches()
+        out = fn(*a, **k)
+        record.append(_launch_delta(at))
+        return out
+
+    setattr(svc, name, call)
+
+
+def front_rank_main(args) -> int:
+    """One rank of the sharded_http phase (`--front-rank`): for each part, a
+    per-rank service behind a `LockstepFront`; rank 0 serves HTTP on a free
+    port, which it writes to the meeting directory, until a line on its
+    standard input stops the front. The counters are set to 0 just before
+    the first part; each score and lookup call records its launches. Prints
+    its results as the last JSON line."""
+    rehearse = args.rehearse_on_cpu
+    if rehearse:
+        cap_cpu_threads()
+    dev = torch.device("cpu" if rehearse else "cuda")
+    root = Path(args.front_dir)
+    rank = args.front_rank
+    pmesh.init_distributed("gloo", f"file://{root / 'store'}", rank, FRONT_S, device=dev)
+    try:
+        mesh = make_mesh(device=dev)
+        out = {"rank": rank, "calls": {}, "rc": {}}
+        reset_launches()
+        for part in FRONT_PARTS:
+            t0 = time.perf_counter()
+            svc = front_service(part, args, mesh, dev)
+            calls = out["calls"][part] = []
+            for name in ("score", "lookup"):
+                if hasattr(svc, name):
+                    _count_calls(svc, name, calls)
+            front = LockstepFront(svc, mesh)
+            if rank:
+                out["rc"][part] = front.follow()
+            else:
+                ret = None
+                if part == "retrieve":
+                    ret = RetrievalService(front)
+                    ret.build_index(np.load(HTTP_DIR / "retrieval_ref.npz")["items"])
+                server = make_http_server(front, 0, retrieval=ret)
+                log(f"sharded_http rank 0: {part} up in {time.perf_counter() - t0:.1f} s")
+                (root / f"port-{part}.tmp").write_text(str(server.server_address[1]))
+                (root / f"port-{part}.tmp").rename(root / f"port-{part}")
+                def stop_on_a_line(front=front):
+                    sys.stdin.readline()
+                    front.stop()
+
+                stopper = threading.Thread(target=stop_on_a_line, daemon=True)
+                stopper.start()
+                out["rc"][part] = front.run(server)
+                stopper.join(timeout=60)
+                del ret, server
+            del front, svc
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        out["launches"] = launches()
+        print(json.dumps(out), flush=True)
+    finally:
+        pmesh.destroy()
+    return 0
+
+
+def _wait_port(path: Path, procs) -> int:
+    deadline = time.monotonic() + 900
+    while not path.exists():
+        if any(p.poll() is not None for p in procs) or time.monotonic() > deadline:
+            raise AssertionError(f"sharded_http: the ranks never served ({path.name})")
+        time.sleep(0.05)
+    return int(path.read_text())
+
+
+def _same_scores(what: str, rep: dict, want) -> None:
+    np.testing.assert_allclose(rep["scores"], want, rtol=1e-5, atol=1e-6, err_msg=what)
+
+
+def front_score_part(args, port: int) -> dict:
+    """The serve phase's requests through the front, against its
+    single-device scores; /healthz, /metrics, a malformed body, a reload of
+    the same checkpoint and of a missing one. Returns the timed requests'
+    p50/p99 and the /score requests the ranks scored."""
+    z = np.load(HTTP_DIR / "serve_ref.npz")
+    n = len([k for k in z.files if k.startswith("scores")])
+    code, health = http_call(port, "/healthz")
+    if code != 200 or health["rows"] != args.ckpt_rows or health["devices"] != FRONT_S:
+        raise AssertionError(f"sharded_http /healthz: {code} {health}")
+    lat = []
+    for j in range(n):
+        body = score_body(z[f"dense{j}"], z[f"ids{j}"])
+        t0 = time.perf_counter()
+        code, rep = http_call(port, "/score", body)
+        ms = (time.perf_counter() - t0) * 1e3
+        if code != 200:
+            raise AssertionError(f"sharded_http POST /score: {code} {rep}")
+        _same_scores(f"sharded_http request {j} ({len(z[f'dense{j}'])} rows)", rep,
+                     z[f"scores{j}"])
+        if HTTP_WARM <= j < n - 1:
+            lat.append(ms)
+    code, text = http_call(port, "/metrics")
+    if f"meepo_mesh_devices {FRONT_S}" not in text or "meepo_route_drops_total 0" not in text:
+        raise AssertionError(f"sharded_http /metrics:\n{text}")
+    # rank 0's own part of a request: its service's scoring latency
+    own_p50 = float(next(line.split()[-1] for line in text.splitlines()
+                         if line.startswith('meepo_score_latency_ms{quantile="0.5"}')))
+    first = score_body(z["dense0"], z["ids0"])
+    code, rep = http_call(port, "/score", b'{"dense": [[1.0]], "ids": [[1, 2]]}')
+    if code != 400:
+        raise AssertionError(f"sharded_http: a malformed body answered {code} {rep}")
+    code, before = http_call(port, "/score", first)
+    _same_scores("sharded_http: after a malformed body", before, z["scores0"])
+    ckpt = str(HTTP_DIR / "serve_ckpt")
+    code, rep = http_call(port, "/reload", json.dumps({"ckpt": ckpt}).encode())
+    if code != 200 or rep["rows"] != args.ckpt_rows:
+        raise AssertionError(f"sharded_http: /reload of the checkpoint: {code} {rep}")
+    code, rep = http_call(port, "/reload", json.dumps({"ckpt": ckpt + "-missing"}).encode())
+    if code != 400:
+        raise AssertionError(f"sharded_http: /reload of a missing path answered {code} {rep}")
+    code, after = http_call(port, "/score", first)
+    if code != 200 or after["scores"] != before["scores"]:
+        raise AssertionError("sharded_http: the scores changed after a refused reload")
+    code, health = http_call(port, "/healthz")
+    if health["rows"] != args.ckpt_rows:
+        raise AssertionError(f"sharded_http: {health['rows']} rows after the reloads")
+    lat = np.asarray(lat)
+    # the ranks scored every request, twice more the first, not the malformed one
+    return {"p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "scored": n + 2, "timed": len(lat), "own_p50_ms": own_p50}
+
+
+def front_retrieve_part(args, port: int) -> dict:
+    """POST /retrieve through the front against a single-device
+    RetrievalService's keys and scores on the same cut corpus."""
+    z = np.load(HTTP_DIR / "retrieval_ref.npz")
+    body = json.dumps({"dense": z["dense"].tolist(), "ids": z["ids"].tolist(),
+                       "k": RETR_K}).encode()
+    code, rep = http_call(port, "/retrieve", body)
+    if code != 200 or not np.array_equal(np.asarray(rep["keys"]), z["keys"]):
+        raise AssertionError(f"sharded_http /retrieve: {code}, keys differ from the "
+                             f"single-device RetrievalService's")
+    np.testing.assert_allclose(rep["scores"], z["scores"], rtol=1e-5, atol=1e-6)
+    items = len(z["items"])
+    embed_batch = inspect.signature(RetrievalService).parameters["embed_batch"].default
+    # the index build's lookups, then the request's
+    return {"items": items, "lookups": -(-items // embed_batch) + 1}
+
+
+def front_group_part(args, port: int) -> dict:
+    """One group request through the front against the single-device
+    GroupScoringService's scores."""
+    z = np.load(HTTP_DIR / "group_ref.npz")
+    code, rep = http_call(port, "/score", score_body(z["dense"], z["ids"]))
+    if code != 200:
+        raise AssertionError(f"sharded_http group POST /score: {code} {rep}")
+    _same_scores("sharded_http group request", rep, z["scores"])
+    code, health = http_call(port, "/healthz")
+    if code != 200 or health["devices"] != FRONT_S or health["route_drops"]:
+        raise AssertionError(f"sharded_http group /healthz: {code} {health}")
+    return {"scored": 1, "rows": health["rows"]}
+
+
+def sharded_http_phase(args, single: dict, dev, card: str) -> dict:
+    """The sharded_http phase (module docstring): FRONT_S rank processes of
+    this script on one card in a gloo group; this process is the HTTP
+    client. Returns the launches summed over the ranks."""
+    rehearse = dev.type == "cpu"
+    root = HTTP_DIR / "front"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--seed", str(args.seed),
+           "--batch", str(args.batch), "--capacity", str(args.capacity),
+           "--front-dir", str(root)] + (["--rehearse-on-cpu"] if rehearse else [])
+    logs = [open(root / f"rank{r}.log", "w") for r in range(FRONT_S)]
+    procs = [subprocess.Popen(cmd + ["--front-rank", str(r)], stdout=logs[r],
+                              stderr=subprocess.STDOUT, cwd=str(ROOT), text=True,
+                              stdin=subprocess.PIPE if r == 0 else subprocess.DEVNULL)
+             for r in range(FRONT_S)]
+    t0 = time.perf_counter()
+    parts = {"score": front_score_part, "retrieve": front_retrieve_part,
+             "group": front_group_part}
+    res = {}
+    try:
+        for part in FRONT_PARTS:
+            res[part] = parts[part](args, _wait_port(root / f"port-{part}", procs))
+            procs[0].stdin.write("stop\n")
+            procs[0].stdin.flush()
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    phase_s = time.perf_counter() - t0
+    ranks = []
+    for r, p in enumerate(procs):
+        lines = (root / f"rank{r}.log").read_text().splitlines()
+        for line in lines:
+            if not line.startswith("{"):
+                log(f"sharded_http rank {r} | {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"sharded_http rank {r} exited {p.returncode}")
+        ranks.append(json.loads([x for x in lines if x.startswith("{")][-1]))
+    # each rank's launches a call: a request's or an index lookup's
+    # SHARDED_REQUEST_GATHERS, a group request's that many a member
+    want = {"score": [SHARDED_REQUEST_GATHERS] * res["score"]["scored"],
+            "retrieve": [SHARDED_REQUEST_GATHERS] * res["retrieve"]["lookups"],
+            "group": [SHARDED_REQUEST_GATHERS * len(GROUP_CAPS)] * res["group"]["scored"]}
+    for rk in ranks:
+        if rk["rc"] != {p: 0 for p in FRONT_PARTS}:
+            raise AssertionError(f"sharded_http rank {rk['rank']}: the stop op returned "
+                                 f"{rk['rc']}")
+        for part in FRONT_PARTS:
+            calls = rk["calls"][part]
+            if len(calls) != len(want[part]):
+                raise AssertionError(f"sharded_http rank {rk['rank']} {part}: {len(calls)} calls, "
+                                     f"not {len(want[part])}")
+            for c, g in zip(calls, want[part]):
+                if dev.type == "cuda" and c != {**{k: 0 for k in c}, "row_gather": g}:
+                    raise AssertionError(f"sharded_http rank {rk['rank']} {part}: a call "
+                                         f"launched {c}, not {g} row_gather and nothing else")
+    total = {k: sum(rk["launches"][k] for rk in ranks) for k in ranks[0]["launches"]}
+    sc = res["score"]
+    log(f"sharded_http: one LockstepFront over {FRONT_S} rank processes on {card} (a gloo "
+        f"group: on one card gloo stages every collective through the host, so this prices "
+        f"the front, not a wire); {sc['timed']} POST /score of {args.batch} x 26 ids: p50 "
+        f"{sc['p50_ms']:.3f} ms, p99 {sc['p99_ms']:.3f} ms, against the single-device HTTP "
+        f"p50 {single['p50_ms']:.3f} ms, p99 {single['p99_ms']:.3f} ms on {card} (rank 0's "
+        f"own scoring of its rows, /metrics: p50 {sc['own_p50_ms']:.3f} ms); every reply "
+        f"(and one of 37 rows) equals the single-device scores (rtol 1e-5, atol 1e-6); a "
+        f"malformed body 400 and the next request answered; /reload kept the rows, a missing "
+        f"path 400 with the scores unchanged; /retrieve over {res['retrieve']['items']} items "
+        f"equals the single-device keys; a group request equals the single-device "
+        f"GroupScoringService's; the stop op ended both ranks with 0; "
+        f"{SHARDED_REQUEST_GATHERS} row_gather a request a rank; phase {phase_s:.1f} s; "
+        f"launches {total}")
+    return {"launches": total, "score": sc, "seconds": phase_s}
+
+
+def entry_phase(args, dev, card: str) -> dict:
+    """The entry phase (module docstring). Returns the forward's launches."""
+    from meepoembedding_tpu_torch import entry as entry_mod
+
+    run, table_cfg, model_cfg = entry_mod._cfgs()
+    spec = TableSpec.from_config(table_cfg, num_shards=1)
+    ids = np.unique(entry_mod._batch(run, model_cfg)["ids"])
+    rows = np.random.default_rng(args.seed + 141).standard_normal(
+        (len(ids), spec.dim)).astype(np.float32) * 0.1
+    outs = {}
+    for where in (dev, torch.device("cpu")):
+        fwd, (shard, model, dense, hi, lo) = entry_mod.entry(device=where)
+        h, lo_ = hashing.split_ids_t(torch.from_numpy(ids).to(where))
+        table_ops.insert_rows(spec, shard, h, lo_, torch.from_numpy(rows).to(where),
+                              hashing.is_valid(h, lo_), 0)
+        sync(where)
+        at = launches()
+        with torch.no_grad():
+            outs[where.type] = fwd(shard, model, dense, hi, lo).cpu().numpy()
+        sync(where)
+        if where == dev:
+            counts = _launch_delta(at)
+    np.testing.assert_allclose(outs[dev.type], outs["cpu"], rtol=1e-5, atol=1e-6)
+    if dev.type == "cuda" and counts != {**{k: 0 for k in counts}, "row_gather": 4}:
+        raise AssertionError(f"entry's forward launched {counts}, not 4 row_gather (the "
+                             f"probe's 2, the values, the inverse) and nothing else")
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    t0 = time.perf_counter()
+    entry_mod.dryrun_multichip(n, device=dev)
+    log(f"entry: forward of {run.batch_size} x {model_cfg.num_sparse_features} ids over "
+        f"{len(ids)} rows on {dev} equals the CPU's through the plain versions (rtol 1e-5, "
+        f"atol 1e-6), launches {counts}; dryrun_multichip({n}) passed in "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    return counts
 
 
 # --- main ----------------------------------------------------------------------
@@ -3870,7 +4424,15 @@ def main() -> int:
     args = parse_args()
     if args.col_rank is not None:
         return col_rank_main(args)
+    if args.front_rank is not None:
+        return front_rank_main(args)
+    try:
+        return run_phases(args)
+    finally:
+        shutil.rmtree(HTTP_DIR, ignore_errors=True)
 
+
+def run_phases(args) -> int:
     rehearse = args.rehearse_on_cpu
     if not rehearse and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing was run", file=sys.stderr)
@@ -3881,6 +4443,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     if rehearse:
+        cap_cpu_threads()
         cpu = torch.device("cpu")
         log("rehearsal on the CPU: plain versions, no build, no timing, no result")
         card = "the CPU (rehearsal)"
@@ -3891,6 +4454,7 @@ def main() -> int:
             sharded_phase(args, res, cpu, card)
             colsharded_phase(args, cpu, card)
             cli_serve_phase(args, res, cpu, card)
+            shutil.move(str(res["ckpt"]), str(HTTP_DIR / "serve_ckpt"))
         finally:
             shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
         train(args, res["svc"].table, cpu, card)
@@ -3903,6 +4467,8 @@ def main() -> int:
         retrieval(args, cpu, card)
         group_phase(args, cpu, card)
         group_sharded_phase(args, 0.0, cpu, card)
+        sharded_http_phase(args, res["http_single"], cpu, card)
+        entry_phase(args, cpu, card)
         log(f"rehearsal finished in {time.perf_counter() - t_start:.1f} s")
         return 1
 
@@ -3987,6 +4553,8 @@ def main() -> int:
         for name, count in cli_counts.items():
             if count <= 0:
                 raise AssertionError(f"the command line never launched {name}")
+        # the serve checkpoint stays for the sharded_http phase
+        shutil.move(str(res["ckpt"]), str(HTTP_DIR / "serve_ckpt"))
     finally:
         shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
 
@@ -4092,6 +4660,22 @@ def main() -> int:
     for kname, count in phase_counts["group_sharded"].items():
         if count <= 0:
             raise AssertionError(f"the group_sharded path never launched {kname}")
+
+    # one HTTP front over two rank processes, with the parent holding no
+    # table; each rank sets its counters to 0 just before its main path
+    http_single = res["http_single"]
+    del res, tres, life, zoo_res
+    gc.collect()
+    torch.cuda.empty_cache()
+    front = sharded_http_phase(args, http_single, cuda, card)
+    phase_counts["sharded_http"] = front["launches"]
+    for kname in ("row_gather", "row_scatter_set"):  # requests; the restores and reload
+        if front["launches"][kname] <= 0:
+            raise AssertionError(f"the sharded_http path never launched {kname}")
+
+    # the entry points of entry.py, the counters set to 0 just before the forward
+    reset_launches()
+    phase_counts["entry"] = entry_phase(args, cuda, card)
     meta = {
         "row_gather": ("meepoembedding_tpu_torch/csrc/row_gather.cu",
                        "meepoembedding_tpu/table/pallas_ops.py:58"),

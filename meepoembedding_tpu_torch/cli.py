@@ -53,8 +53,6 @@ from meepoembedding_tpu_torch.config import (
 )
 from meepoembedding_tpu_torch.table.layout import resolve_device
 
-NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1, {!r})"
-
 
 # --- config layering -------------------------------------------------------------
 
@@ -703,19 +701,44 @@ def _serve_http(svc, args, retrieval=None) -> int:
     return 0
 
 
+def _serve_front(svc, mesh, args, retrieval: bool) -> int:
+    """--http over a world of S > 1 ranks: one `LockstepFront` over the
+    per-rank service `svc`. Rank 0 serves (with /retrieve when `retrieval`
+    and --retrieval-items) and prints until SIGINT or SIGTERM, which stop
+    every rank; the other ranks follow it. A failure on rank 0 before it
+    serves stops the others."""
+    from meepoembedding_tpu_torch.serving import make_http_server
+    from meepoembedding_tpu_torch.serving_sharded import LockstepFront
+
+    front = LockstepFront(svc, mesh)
+    if mesh.rank:
+        return front.follow()
+    try:
+        ret = _retrieval(front, args) if retrieval else None
+        srv = make_http_server(front, args.http, retrieval=ret)
+        print(json.dumps({"serving": f"http://127.0.0.1:{args.http}", **front.stats()}),
+              flush=True)
+    except BaseException:
+        front.stop()
+        raise
+    return front.run(srv)
+
+
 def _serve_group(args, run_cfg, tables, feature_map, model_cfg) -> int:
     """Scoring from a `tables:` group checkpoint: --http through
-    GroupScoringService on one device, else batches through the group eval
-    step (probe-only lookups: unknown ids score with zero embeddings), over
-    a world of S > 1 with --distributed (members row-sharded, each rank
-    scoring its rows, rank 0 printing every rank's scores)."""
+    GroupScoringService (one device, or with --distributed over a world of
+    S > 1 its members row-sharded behind one front on rank 0), else
+    batches through the group eval step (probe-only lookups: unknown ids
+    score with zero embeddings), over a world of S > 1 with --distributed
+    (each rank scoring its rows, rank 0 printing every rank's scores)."""
     if _sharded(args):
-        if args.http:
-            raise NotImplementedError(
-                "serve --http of a `tables:` group checkpoint with --distributed over more "
-                "than one rank (one HTTP front whose requests every rank scores in lockstep) "
-                + NOT_PORTED.format("HTTP serving over S ranks"))
         with _joined_world(args) as mesh:
+            if args.http:
+                from meepoembedding_tpu_torch.serving_group import GroupScoringService
+
+                svc = GroupScoringService(args.ckpt, run_cfg, tables, feature_map, model_cfg,
+                                          distributed=True, mesh=mesh, device=mesh.device)
+                return _serve_front(svc, mesh, args, retrieval=False)
             _serve_group_sharded(args, run_cfg, tables, feature_map, model_cfg, mesh)
         return 0
     if args.http:
@@ -800,19 +823,20 @@ def _serve_single(args, run_cfg, table_cfg, model_cfg, dev) -> None:
     _serve_latency_line(lat_ms, run_cfg.batch_size)
 
 
-def _serve_with_retrieval(svc, args) -> int:
-    """--http over `svc`, with POST /retrieve when --retrieval-items names a
-    corpus npz (item_ids [N, IF], optional keys [N]) for a two_tower."""
-    retrieval = None
-    if args.retrieval_items:
-        from meepoembedding_tpu_torch.retrieval import RetrievalService
+def _retrieval(svc, args):
+    """A RetrievalService over `svc` with its index built when
+    --retrieval-items names a corpus npz (item_ids [N, IF], optional keys
+    [N]) for a two_tower; else None."""
+    if not args.retrieval_items:
+        return None
+    from meepoembedding_tpu_torch.retrieval import RetrievalService
 
-        corpus = np.load(args.retrieval_items)
-        retrieval = RetrievalService(svc)
-        keys = corpus["keys"] if "keys" in corpus.files else None
-        retrieval.build_index(corpus["item_ids"], keys=keys)
-        print(json.dumps({"retrieval_index": retrieval.index.num_items}), flush=True)
-    return _serve_http(svc, args, retrieval=retrieval)
+    corpus = np.load(args.retrieval_items)
+    retrieval = RetrievalService(svc)
+    keys = corpus["keys"] if "keys" in corpus.files else None
+    retrieval.build_index(corpus["item_ids"], keys=keys)
+    print(json.dumps({"retrieval_index": retrieval.index.num_items}), flush=True)
+    return retrieval
 
 
 def cmd_serve(args) -> int:
@@ -820,7 +844,9 @@ def cmd_serve(args) -> int:
     JSON line of predictions a batch, then the latency line on stderr;
     --http serves POST /score (and /retrieve with --retrieval-items).
     Lookups are probe-only: unknown ids score with zero embeddings. A
-    `tables:` group config serves the group checkpoint."""
+    `tables:` group config serves the group checkpoint. --http
+    --distributed over S > 1 ranks serves from rank 0 through one
+    `LockstepFront`, whose requests every rank scores."""
     grp = load_group_configs(args.config, args.set)
     if grp is not None:
         return _serve_group(args, *grp)
@@ -829,24 +855,22 @@ def cmd_serve(args) -> int:
     dev = resolve_device(args.device)
     if args.http:
         if args.distributed:
-            if _sharded(args):
-                raise NotImplementedError(
-                    "serve --http --distributed over more than one rank (one HTTP front "
-                    "whose requests every rank scores in lockstep) "
-                    + NOT_PORTED.format("HTTP serving over S ranks"))
             if args.quantize != "none":
                 raise SystemExit("serve --http --distributed serves full-precision rows; "
                                  "drop --quantize (int8 is single-device only)")
             from meepoembedding_tpu_torch.serving_sharded import ShardedScoringService
 
-            # a world of one: the probe-only exchange path of the sharded service
+            # the probe-only exchange path of the sharded service; over S > 1
+            # ranks, one front on rank 0 whose requests every rank scores
             with _joined_world(args) as mesh:
                 svc = ShardedScoringService(args.ckpt, table_cfg, model_cfg, mesh=mesh)
-                return _serve_with_retrieval(svc, args)
+                if mesh.size > 1:
+                    return _serve_front(svc, mesh, args, retrieval=True)
+                return _serve_http(svc, args, retrieval=_retrieval(svc, args))
         from meepoembedding_tpu_torch.serving import ScoringService
 
         svc = ScoringService(args.ckpt, table_cfg, model_cfg, quantize=args.quantize, device=dev)
-        return _serve_with_retrieval(svc, args)
+        return _serve_http(svc, args, retrieval=_retrieval(svc, args))
     if _sharded(args):
         with _joined_world(args) as mesh:
             _serve_sharded(args, run_cfg, table_cfg, model_cfg, mesh)

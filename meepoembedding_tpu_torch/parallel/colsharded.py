@@ -162,6 +162,9 @@ class ColShardedTrainer(ShardedTrainer):
         self._col_broadcast(n)
         n = int(n.item())
         if not n:
+            # the row mesh's sum is a collective that another row shard, with
+            # rows staged, waits in; the bound must agree on every rank
+            self._live_upper += int(multihost.all_processes_sum(0, self.mesh))
             return PromoteStats()
         keys = torch.empty((n,), dtype=torch.int64, device=dev)
         payload = torch.empty((n, codec.width), dtype=torch.float32, device=dev)

@@ -34,20 +34,23 @@ class GroupScoringService:
                  feature_map: Sequence[str], model_cfg, distributed: bool = False, mesh=None,
                  device="cuda"):
         self._args = (run_cfg, dict(table_cfgs), list(feature_map), model_cfg)
+        self.model_cfg, self.num_features = model_cfg, len(feature_map)
         self.device = device
         self.distributed = distributed
         self._mesh = mesh
-        self._ckpt_path = ckpt_path
+        self.ckpt_path = ckpt_path
         self._lock = threading.Lock()  # one request at a time
         self._lat_ms: list = []
         self._requests = 0
         self.route_drops = 0  # lifetime: ids scored with zero rows (0 on one device)
-        self.trainer, self.manifest = self._restore(ckpt_path)
+        self.install_state(ckpt_path, self.load_state(ckpt_path))
         self.S = self.trainer.S
 
-    def _restore(self, path: str):
-        """A fresh trainer restored from `path`; the caller swaps it in, so a
-        reload keeps serving the old state until the new one is up."""
+    def load_state(self, path: str):
+        """The first phase of a reload: (a fresh trainer restored from
+        `path`, its manifest). Neither the trainer's construction nor its
+        restore makes a collective; `install_state` swaps the result in, so
+        a reload keeps serving the old state until the new one is up."""
         from meepoembedding_tpu_torch.group_train import GroupTrainer, ShardedGroupTrainer
 
         run_cfg, tables, fmap, model_cfg = self._args
@@ -91,12 +94,15 @@ class GroupScoringService:
                 del self._lat_ms[:512]
             return p[:b].astype(np.float32)
 
-    def reload(self, ckpt_path: Optional[str] = None) -> dict:
-        path = ckpt_path or self._ckpt_path
-        trainer, manifest = self._restore(path)
+    def install_state(self, path: str, state) -> None:
+        """The second phase of a reload: swap in a `load_state` result."""
         with self._lock:
-            self.trainer, self.manifest = trainer, manifest
-            self._ckpt_path = path
+            self.trainer, self.manifest = state
+            self.ckpt_path = path
+
+    def reload(self, ckpt_path: Optional[str] = None) -> dict:
+        path = ckpt_path or self.ckpt_path
+        self.install_state(path, self.load_state(path))
         return self.stats()
 
     def metrics_text(self) -> str:

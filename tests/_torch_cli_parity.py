@@ -3,12 +3,14 @@ in-process calls of the JAX package's and the port's `main` with their
 output captured, checkpoint rows by id, the sizes and tolerances of the
 single-table cases, a `serve --http` subprocess of the port, the
 reference's `serve --http` on a thread, and worlds of gloo ranks running
-the port's `--distributed` command line under torchrun's variables."""
+the port's `--distributed` command line under torchrun's variables, one
+of them serving HTTP from rank 0."""
 
 import contextlib
 import io
 import json
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -95,14 +97,14 @@ def http_server(argv: list):
         return proc.communicate()[1][-3000:]
 
     try:
-        _wait_healthy(port, lambda: proc.poll() is None, tail)
+        wait_healthy(port, lambda: proc.poll() is None, tail)
         yield port
     finally:
         proc.kill()
         proc.communicate(timeout=30)
 
 
-def _wait_healthy(port: int, alive, tail) -> None:
+def wait_healthy(port: int, alive, tail) -> None:
     """Return once /healthz on `port` answers; raise with `tail()` if the
     server stops (`alive()` false) or 120 s pass."""
     deadline = time.monotonic() + 120
@@ -141,7 +143,7 @@ def reference_http_server(argv: list, monkeypatch):
     th = threading.Thread(target=run, daemon=True)
     th.start()
     try:
-        _wait_healthy(port, th.is_alive, lambda: repr(result.get("error")))
+        wait_healthy(port, th.is_alive, lambda: repr(result.get("error")))
         yield port
     finally:
         if "srv" in made:
@@ -152,18 +154,59 @@ def reference_http_server(argv: list, monkeypatch):
     assert result == {"rc": 0}, result
 
 
+def world_env(world: int) -> dict:
+    return dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(free_port()), WORLD_SIZE=str(world))
+
+
+def start_rank(argv: list, base: dict, r: int) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-m", "meepoembedding_tpu_torch", *argv, "--device", "cpu"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
+        env=dict(base, RANK=str(r), LOCAL_RANK=str(r)))
+
+
+@contextlib.contextmanager
+def http_world(argv: list, world: int = 2, timeout: float = 120.0):
+    """A world of `world` ranks running `python -m meepoembedding_tpu_torch
+    serve --distributed --http PORT <argv> --device cpu` under torchrun's
+    variables. Yields {"port": PORT} once rank 0's /healthz answers; at
+    exit SIGINT goes to rank 0 alone, every rank must end with 0 within
+    `timeout`, and the dict gains "outs", each rank's (exit code, stdout,
+    stderr)."""
+    state = {"port": free_port()}
+    base = world_env(world)
+    serve = ["serve", "--distributed", "--http", str(state["port"]), *argv]
+    procs = [start_rank(serve, base, r) for r in range(world)]
+
+    def tail():
+        for p in procs:
+            p.kill()
+        return "\n".join(f"rank {r}:\n{p.communicate()[1][-3000:]}" for r, p in enumerate(procs))
+
+    try:
+        wait_healthy(state["port"], lambda: all(p.poll() is None for p in procs), tail)
+        yield state
+        procs[0].send_signal(signal.SIGINT)
+        outs = [p.communicate(timeout=timeout) for p in procs]
+        state["outs"] = [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (rc, _, err) in enumerate(state["outs"]):
+        assert rc == 0, f"rank {r} of {world} ended with {rc}:\n{err[-3000:]}"
+
+
 def run_world(argv: list, world: int = 2, timeout: float = 120.0) -> list:
     """(exit code, stdout, stderr) of each rank of a world of `world`
     processes running `python -m meepoembedding_tpu_torch <argv> --device
     cpu`, which meet through torchrun's environment (RANK, WORLD_SIZE,
     LOCAL_RANK, MASTER_ADDR, MASTER_PORT). Every rank is killed at the
     timeout; a failed rank's traceback is the assertion message."""
-    base = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", MASTER_ADDR="127.0.0.1",
-                MASTER_PORT=str(free_port()), WORLD_SIZE=str(world))
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "meepoembedding_tpu_torch", *argv, "--device", "cpu"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
-        env=dict(base, RANK=str(r), LOCAL_RANK=str(r))) for r in range(world)]
+    base = world_env(world)
+    procs = [start_rank(argv, base, r) for r in range(world)]
     outs = []
     try:
         for p in procs:

@@ -16,6 +16,10 @@ ModelConfig, as the JAX package's configs have them.
 import json
 import os
 import sys
+import threading
+import time
+import urllib.error
+import urllib.request
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -42,7 +46,7 @@ from meepoembedding_tpu_torch.parallel.colsharded import ColShardedTrainer  # no
 from meepoembedding_tpu_torch.parallel.trainer import ShardedTrainer  # noqa: E402
 from meepoembedding_tpu_torch.serving_group import GroupScoringService  # noqa: E402
 from meepoembedding_tpu_torch.serving_sharded import ShardedScoringService  # noqa: E402
-from meepoembedding_tpu_torch.table import hashing  # noqa: E402
+from meepoembedding_tpu_torch.table import hashing, table_ops  # noqa: E402
 from meepoembedding_tpu_torch.table.layout import TableSpec, alloc_shard  # noqa: E402
 from meepoembedding_tpu_torch.tiering import SpillCodec  # noqa: E402
 from meepoembedding_tpu_torch.weights import (  # noqa: E402
@@ -197,6 +201,33 @@ def trainer(mesh, inp, args):
     return out
 
 
+def promote_one_shard(mesh, inp, args):
+    """A ColShardedTrainer on the grid `grid` with a cold tier on column 0,
+    whose row shard 0 alone has rows staged for promotion (`keys` with
+    their `payload` in the cold tier's codec, put straight into its
+    promoter); then maintenance() on every rank, and one train step of the
+    batch `dense`/`ids`/`label` (each row shard its rows). Outputs the
+    promotion figures, the rows and this rank's blocks of the keys after
+    maintenance, and the live bound and capacity after the step."""
+    run, table, model = (RunConfig(**args["run"]), table_config(args["table"]),
+                         model_config(args["model"]))
+    m2 = pmesh.make_mesh2d(*args["grid"], device="cpu")
+    codec = SpillCodec(TableSpec.from_config(table, m2.S))
+    spill = PyKVStore(codec.width) if m2.col.rank == 0 else None
+    tr = ColShardedTrainer(run, table, model, m2, spill=spill, device="cpu")
+    if spill is not None and m2.row.rank == 0:
+        tr._promoter._staged.append((inp["keys"], inp["payload"]))
+    m = tr.maintenance()
+    hi, lo = hashing.split_ids_t(torch.from_numpy(inp["keys"]))
+    pr = table_ops.probe(tr.spec_local, tr.shard, hi, lo, hashing.is_valid(hi, lo))
+    out = {"promoted": m["promoted"], "staged": m["promote_staged"], "rows": len(tr),
+           "found": pr.found.numpy(), "blocks": tr.shard.values[pr.slot.clamp(min=0).long()]
+           .numpy()}
+    tr.train_step(_batch(inp, 0, m2.row))
+    tr.flush()
+    return {**out, "live_upper": tr._live_upper, "capacity": tr.spec.capacity}
+
+
 def serve(mesh, inp, args):
     """A ShardedScoringService on checkpoint `path`: this rank's scores of
     `dense`/`ids` (global arrays), its rows of `lookup_ids`, stats; with
@@ -218,11 +249,122 @@ def serve(mesh, inp, args):
     return out
 
 
+def _request(url: str, path: str, body=None):
+    """(status, parsed reply) of a GET (no body) or a POST of `body` (bytes,
+    or an object sent as JSON); /metrics replies with text."""
+    data = None if body is None else (body if isinstance(body, bytes)
+                                      else json.dumps(body).encode())
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url + path, data=data),
+                                    timeout=120) as r:
+            code, text = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        code, text = e.code, e.read().decode()
+    return code, (text if path == "/metrics" else json.loads(text))
+
+
+def front(mesh, inp, args):
+    """One HTTP front over the world (`serving_sharded.LockstepFront`) on
+    checkpoint `path`: a ShardedScoringService, or with `tables` a
+    GroupScoringService(distributed=True). Rank 0 serves; a client thread
+    of its own posts /score of each global batch `dense<i>`/`ids<i>`, and
+    for one table looks `lookup_ids` up through `front.table`, reads
+    /healthz and /metrics, posts a malformed body and one of `big_rows`
+    rows, more than `max_rank_ids` (the front's bound) allow, then reloads
+    `path` and a missing path, scoring batch 0 after each; with `items`, a
+    RetrievalService over the front answers /retrieve of `query_dense` /
+    `query_ids` at `k`. With `heartbeat`, the front's no-op interval, the
+    client idles three of them after each batch. The client then stops
+    the front. Every rank outputs the code its run or follow returned."""
+    from meepoembedding_tpu_torch import serving_sharded
+    from meepoembedding_tpu_torch.retrieval import RetrievalService
+    from meepoembedding_tpu_torch.serving import make_http_server
+    from meepoembedding_tpu_torch.serving_sharded import LockstepFront
+
+    if "heartbeat" in args:
+        serving_sharded._HEARTBEAT_S = args["heartbeat"]
+    if "max_rank_ids" in args:
+        serving_sharded.MAX_RANK_IDS = args["max_rank_ids"]
+
+    model = model_config(args["model"])
+    if "tables" in args:
+        tables = {n: table_config(t) for n, t in args["tables"].items()}
+        svc = GroupScoringService(args["path"], RunConfig(**args["run"]), tables, args["fmap"],
+                                  model, distributed=True, mesh=mesh, device="cpu")
+    else:
+        svc = ShardedScoringService(args["path"], table_config(args["table"]), model,
+                                    mesh=mesh, a2a_factor=args.get("factor", 1.25))
+    fr = LockstepFront(svc, mesh)
+    if mesh.rank:
+        return {"rc": fr.follow()}
+    ret = None
+    if "items" in inp:
+        ret = RetrievalService(fr)
+        ret.build_index(inp["items"])
+    server = make_http_server(fr, 0, retrieval=ret)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    out, failed = {}, []
+
+    def request(path, body=None):
+        return _request(url, path, body)
+
+    def score(i):
+        code, rep = request("/score", {"dense": inp[f"dense{i}"].tolist(),
+                                       "ids": inp[f"ids{i}"].tolist()})
+        assert code == 200, rep
+        return np.array(rep["scores"], np.float32)
+
+    def client():
+        try:
+            i = 0
+            while f"dense{i}" in inp:
+                out[f"scores{i}"] = score(i)
+                i += 1
+                if "heartbeat" in args:  # idle a while: rank 0 sends no-ops
+                    time.sleep(3 * args["heartbeat"])
+            out["health"] = json.dumps(request("/healthz")[1])
+            out["metrics"] = request("/metrics")[1]
+            if "lookup_ids" in inp:
+                out["rows"] = fr.table.lookup(inp["lookup_ids"]).numpy()
+                out["counters"] = json.dumps(fr.counters())
+                out["bad_body"] = request("/score", b"{not json")[0]
+                out["bad_shape"] = request("/score", {"dense": [[0.0]], "ids": [[1, 2]]})[0]
+                out["after_bad"] = score(0)
+                big = args["big_rows"]
+                out["too_big"], rep = request("/score", {
+                    "dense": np.zeros((big, model.num_dense_features)).tolist(),
+                    "ids": np.ones((big, model.num_sparse_features), np.int64).tolist()})
+                out["too_big_error"] = rep["error"]
+                out["after_too_big"] = score(0)
+                out["reload"] = json.dumps(request("/reload", {"ckpt": args["path"]}))
+                code, rep = request("/reload", {"ckpt": args["path"] + "-missing"})
+                out["bad_reload"], out["bad_reload_error"] = code, rep["error"]
+                out["after_reload"] = score(0)
+                out["health_after"] = json.dumps(request("/healthz")[1])
+            if ret is not None:
+                code, rep = request("/retrieve", {"dense": inp["query_dense"].tolist(),
+                                                  "ids": inp["query_ids"].tolist(),
+                                                  "k": int(args["k"])})
+                assert code == 200, rep
+                out["keys"] = np.array(rep["keys"], np.int64)
+                out["retrieve_scores"] = np.array(rep["scores"], np.float32)
+        except BaseException as e:  # handed to the main thread below
+            failed.append(e)
+        finally:
+            fr.stop()
+
+    th = threading.Thread(target=client)
+    th.start()
+    out["rc"] = fr.run(server)
+    th.join(timeout=60)
+    assert not th.is_alive()
+    if failed:
+        raise failed[0]
+    return out
+
+
 def http(svc, inp) -> dict:
     """One POST /score and GET /healthz through `serving.make_http_server`."""
-    import threading
-    import urllib.request
-
     from meepoembedding_tpu_torch.serving import make_http_server
 
     server = make_http_server(svc, 0)
@@ -230,13 +372,9 @@ def http(svc, inp) -> dict:
     th.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
     try:
-        body = json.dumps({"dense": inp["dense"][:5].tolist(),
-                           "ids": inp["ids"][:5].tolist()}).encode()
-        with urllib.request.urlopen(urllib.request.Request(url + "/score", data=body),
-                                    timeout=60) as r:
-            scores = json.loads(r.read())["scores"]
-        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
-            health = json.loads(r.read())
+        scores = _request(url, "/score", {"dense": inp["dense"][:5].tolist(),
+                                          "ids": inp["ids"][:5].tolist()})[1]["scores"]
+        health = _request(url, "/healthz")[1]
     finally:
         server.shutdown()
         server.server_close()
@@ -316,7 +454,8 @@ def group(mesh, inp, args):
     return out
 
 
-CASES = {"exchange": exchange, "trainer": trainer, "serve": serve, "group": group}
+CASES = {"exchange": exchange, "trainer": trainer, "serve": serve, "group": group,
+         "promote_one_shard": promote_one_shard, "front": front}
 
 
 def main():

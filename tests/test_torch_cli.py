@@ -19,8 +19,7 @@ gradient). `eval` AUCs agree within 1e-6: the logits that fill the AUC's
 
 Checks on the port alone: the bench commands' JSON keys, one `python -m
 meepoembedding_tpu_torch` subprocess, `serve --http` subprocesses answering
-POST /score, the NotImplementedError of every path not ported yet, and
-`--device cuda` raising without a card."""
+POST /score, and `--device cuda` raising without a card."""
 
 import argparse
 import dataclasses
@@ -375,14 +374,6 @@ def test_serve_http_answers_score(jck, quantize):
         np.testing.assert_allclose(got, np.asarray(jsvc.score(dense, ids)), **TOL)
 
 
-def _group_yaml(tmp_path) -> str:
-    cfg = tmp_path / "group.yaml"
-    cfg.write_text("tables:\n  user: {dim: 16, capacity: 4096}\n  item: {dim: 8, capacity: 2048}\n"
-                   "feature_map: [user, item, item]\nrun: {steps: 2, batch_size: 64}\n"
-                   "model: {num_dense_features: 4, top_mlp: [16, 1]}\n")
-    return str(cfg)
-
-
 def test_disk_spill_defaults_to_the_temporary_directory(tmp_path, monkeypatch):
     """--spill disk without --spill-path logs to meepo_spill.log in
     tempfile.gettempdir() (TMPDIR, else /tmp)."""
@@ -393,23 +384,6 @@ def test_disk_spill_defaults_to_the_temporary_directory(tmp_path, monkeypatch):
         "table.policy.ttl_steps=1", *SETS])
     assert rc == 0 and json_lines(out)[-2]["ctr_spills"] > 0
     assert (tmp_path / "meepo_spill.log").stat().st_size > 0
-
-
-@pytest.mark.parametrize("case", ["group-serve-http", "http-sharded"])
-def test_paths_not_ported_raise(tmp_path, monkeypatch, case):
-    """Each names its ROADMAP item. A world of two ranks is torchrun's
-    WORLD_SIZE; every refusal comes before the ranks would meet."""
-    g = _group_yaml(tmp_path)
-    ck = str(tmp_path / "ck")
-    argv = {
-        "group-serve-http": ["serve", "--distributed", "--http", "1", "--ckpt", ck,
-                             "--config", g],
-        "http-sharded": ["serve", "--distributed", "--http", "1", "--ckpt", ck, "--set", *SETS],
-    }[case]
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    monkeypatch.setenv("RANK", "0")
-    with pytest.raises(NotImplementedError, match="HTTP serving over S ranks"):
-        tcli.main(argv + ["--device", "cpu"])
 
 
 def test_device_cuda_raises_without_a_card(jck, monkeypatch):

@@ -14,7 +14,9 @@ here the front end:
   the same bins), mean loss within rtol 1e-5 (a mean of the ranks' means);
 - `serve --distributed` prints rank 0's and rank 1's scores of each global
   batch, equal within rtol 1e-5 / atol 1e-6 to the single-device scores of
-  those lines;
+  those lines; with `--http`, rank 0's POST /score of a global batch equals
+  the single-device ScoringService's, SIGINT to rank 0 stops both, and
+  a killed rank 1 makes rank 0 exit non-zero at its next request;
 - `train --distributed --col-shards 2` on a world of 4 (a 2 x 2 grid):
   rank 0 prints; its 2-D checkpoint holds the rows the port's
   single-device Trainer trains on the same global batches (ids, freq and
@@ -24,11 +26,25 @@ here the front end:
 
 import dataclasses
 import json
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
 import torch
-from _torch_cli_parity import TOL, call, json_lines, rows_by_id, run_world
+from _torch_cli_parity import (
+    TOL,
+    call,
+    free_port,
+    http_world,
+    json_lines,
+    post,
+    rows_by_id,
+    run_world,
+    start_rank,
+    wait_healthy,
+    world_env,
+)
 
 from meepoembedding_tpu_torch import cli as tcli
 from meepoembedding_tpu_torch.data.criteo import write_synthetic_criteo
@@ -104,6 +120,58 @@ def test_distributed_serve_equals_single_device(world):
         p = np.asarray(w["scores"])
         np.testing.assert_allclose(g["scores"], np.concatenate([p[0::2], p[1::2]]), **TOL)
         np.testing.assert_allclose(g["mean_score"], w["mean_score"], **TOL)
+
+
+def test_distributed_http_serve_equals_single_device(world):
+    """`serve --distributed --http` over the 2 ranks: rank 0 alone prints
+    its `serving` line; POST /score of a global batch of 37 rows (ids of
+    the checkpoint, some unknown) equals the single-device
+    ScoringService's within TOL, and /healthz counts the checkpoint's rows
+    over 2 devices. SIGINT to rank 0 ends both ranks with 0."""
+    from meepoembedding_tpu_torch.serving import ScoringService
+
+    _, ck, _ = world
+    _, table_cfg, model_cfg = tcli.load_configs(None, SETS)
+    svc = ScoringService(ck, table_cfg, dataclasses.replace(model_cfg, embedding_dim=16),
+                         device="cpu")
+    rng = np.random.default_rng(11)
+    saved = rows_by_id(ck)["ids"]
+    ids = saved[rng.integers(0, len(saved), size=(37, 26))]
+    ids[rng.random(ids.shape) < 0.1] = -5
+    dense = rng.standard_normal((37, 13)).astype(np.float32)
+    with http_world(["--ckpt", ck, "--set", *SETS]) as w:
+        got = post(w["port"], "/score", {"dense": dense.tolist(), "ids": ids.tolist()})
+        with urllib.request.urlopen(f"http://127.0.0.1:{w['port']}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    np.testing.assert_allclose(got["scores"], svc.score(dense, ids), **TOL)
+    assert health["rows"] == len(svc.table) == len(saved) and health["devices"] == S
+    assert w["outs"][1][1] == "" and json_lines(w["outs"][0][1])[0]["devices"] == S
+
+
+def test_http_front_ends_when_a_rank_dies(world):
+    """SIGKILL to rank 1 of a `serve --distributed --http` world: rank 0's
+    next request fails (an error reply) and rank 0 exits non-zero instead
+    of waiting for the dead rank."""
+    _, ck, _ = world
+    port = free_port()
+    base = world_env(S)
+    argv = ["serve", "--distributed", "--http", str(port), "--ckpt", ck, "--set", *SETS]
+    procs = [start_rank(argv, base, r) for r in range(S)]
+    try:
+        wait_healthy(port, lambda: all(p.poll() is None for p in procs),
+                      lambda: [p.kill() for p in procs] and procs[0].communicate()[1][-3000:])
+        procs[1].kill()
+        procs[1].wait(timeout=30)
+        body = {"dense": np.zeros((4, 13)).tolist(), "ids": np.ones((4, 26), np.int64).tolist()}
+        with pytest.raises(urllib.error.HTTPError) as e:
+            post(port, "/score", body)
+        assert e.value.code == 400
+        assert procs[0].wait(timeout=60) != 0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
 
 
 @pytest.fixture(scope="module")

@@ -8,9 +8,9 @@ With --distributed over a world of 2 gloo ranks (`run_world`), on a
 Criteo-shaped group whose ranks read lines i % 2 == rank: `train` writes
 the rows the port's single-device GroupTrainer trains on the same global
 batches (a fresh sharded run cannot match the reference's, whose one
-process reads whole batches); `eval` and `serve` of the JAX-written group
-checkpoint give the single-device port's results, which the tests above
-hold against the reference's.
+process reads whole batches); `eval`, `serve` and `serve --http` of the
+JAX-written group checkpoint give the single-device port's results, which
+the tests above hold against the reference's.
 
 Exact: the steps, the members' ids, freq and last, their counts and
 counters, the inspected manifests (not the generation names), eval's
@@ -32,6 +32,7 @@ from _torch_cli_parity import (
     both,
     call,
     http_server,
+    http_world,
     json_lines,
     post,
     rows_by_id,
@@ -241,3 +242,23 @@ def test_group_distributed_serve_equals_single_device(criteo_group):
         p = np.asarray(w["scores"])
         np.testing.assert_allclose(g["scores"], np.concatenate([p[0::2], p[1::2]]), **TOL)
         np.testing.assert_allclose(g["mean_score"], w["mean_score"], **TOL)
+
+
+def test_group_distributed_http_serve_equals_single_device(criteo_group):
+    """`serve --distributed --http` of the group checkpoint over 2 ranks:
+    POST /score of a global batch of 37 rows equals the single-device
+    GroupScoringService's within TOL; /healthz counts its members' rows;
+    SIGINT to rank 0 ends both ranks with 0, rank 1 having printed
+    nothing."""
+    cfg, _, ck = criteo_group
+    run_cfg, tables, fmap, model_cfg = tcli.load_group_configs(cfg)
+    svc = GroupScoringService(ck, run_cfg, tables, fmap, model_cfg, device="cpu")
+    rng = np.random.default_rng(12)
+    dense = rng.standard_normal((37, 13)).astype(np.float32)
+    ids = rng.integers(0, 400, size=(37, 26))
+    with http_world(["--config", cfg, "--ckpt", ck]) as w:
+        got = post(w["port"], "/score", {"dense": dense.tolist(), "ids": ids.tolist()})
+        health = post(w["port"], "/reload", {})
+    np.testing.assert_allclose(got["scores"], svc.score(dense, ids), **TOL)
+    assert health["rows"] == svc.stats()["rows"] > 0 and health["devices"] == 2
+    assert w["outs"][1][1] == "" and json_lines(w["outs"][0][1])[0]["devices"] == 2

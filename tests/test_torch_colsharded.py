@@ -416,3 +416,53 @@ def test_jax_2d_checkpoint_restores_on_one_device(grids):
                                   np.asarray(jx.gather_values(j1.spec, j1.shard.values, slots)))
     np.testing.assert_array_equal(tr.shard.opt_rowwise[0].numpy(),
                                   np.asarray(j1.shard.opt_rowwise[0]))
+
+
+def test_promotion_staged_on_one_row_shard_keeps_the_grid_in_step(tmp_path):
+    """maintenance() on a 2 x 2 grid whose row shard 0 alone has rows staged
+    for promotion (put straight into its column-0 promoter, so no race
+    decides it). Every rank must make the row mesh's sum of the inserted
+    rows, whether or not its row shard drained any: a rank that skips it
+    leaves the grid at different collectives (gloo's collective mismatch,
+    or a wait until the worker's short timeout), and must add the sum to its
+    bound on the live rows, so that the next step's growth check (its
+    grow_at_load just above the step's incoming ids, below them plus the
+    promoted rows) makes the same collectives on every rank. The staged
+    rows land in both columns of row shard 0, each column its block of the
+    payload; the step grows every shard once."""
+    from meepoembedding_tpu_torch.tiering import SpillCodec
+
+    S, C, n = 2, 2, 40
+    batch = 64
+    incoming = batch * MODEL["num_sparse_features"]  # the step's ids, every row shard's
+    grow_at_load = (incoming + n / 2) / (SLOTS * S)
+    table = {"dim": DIM, "capacity": SLOTS * S, "optimizer": ADAGRAD,
+             "grow_at_load": grow_at_load}
+    rng = np.random.default_rng(35)
+    ids = rng.integers(1, 10**15, size=4 * n, dtype=np.int64)
+    hi, lo = hashing.split_ids_t(torch.from_numpy(ids))
+    keys = ids[hashing.owner_of(hi, lo, S).numpy() == 0][:n]
+    assert len(keys) == n
+    codec = SpillCodec(TableSpec.from_config(TableConfig(
+        dim=DIM, capacity=SLOTS * S, optimizer=OptimizerConfig(**ADAGRAD)), S))
+    values = rng.standard_normal((n, DIM)).astype(np.float32)
+    accum = rng.random(n).astype(np.float32)
+    payload = codec.pack(values, np.full(n, 3, np.int32), accum)
+    step = {"dense": rng.standard_normal((1, batch, MODEL["num_dense_features"]))
+            .astype(np.float32),
+            "ids": rng.integers(1, 10**15, size=(1, batch, MODEL["num_sparse_features"]),
+                                dtype=np.int64),
+            "label": rng.integers(0, 2, size=(1, batch)).astype(np.float32)}
+    case = {"fn": "promote_one_shard", "inputs": {"keys": keys, "payload": payload, **step},
+            "args": {"grid": [S, C], "table": table, "model": MODEL,
+                     "run": dict(batch_size=batch, steps=1, seed=35, pipeline_depth=0)}}
+    (ranks,) = run_ranks(tmp_path, S * C, [case], timeout=60)
+    assert [int(r["promoted"]) for r in ranks] == [n, n, 0, 0]
+    assert [int(r["rows"]) for r in ranks] == [n] * 4
+    d = DIM // C
+    for c in range(C):
+        assert ranks[c]["found"].all()
+        np.testing.assert_array_equal(ranks[c]["blocks"], values[:, c * d:(c + 1) * d])
+    assert not any(ranks[S + c]["found"].any() for c in range(C))
+    assert [int(r["live_upper"]) for r in ranks] == [n + incoming] * 4
+    assert [int(r["capacity"]) for r in ranks] == [2 * SLOTS] * 4  # a shard's slots

@@ -171,10 +171,11 @@ def test_chip_smoke_rehearses_on_cpu():
     row and score checks, HTTP), int8, sharded (a gloo world of one),
     colsharded (two rank processes), train and lifecycle phases (eviction
     into a spill tier, remove, promotion, checkpoints, growth), the zoo,
-    embed, retrieval, group and group_sharded phases, and
-    the cli phase (train through `python -m`, export and import, card vs
-    CPU, the bench commands, serve and eval of the serve checkpoint) at a
-    tiny size with the plain versions. It must exit non-zero and print no
+    embed, retrieval, group and group_sharded phases, the cli phase (train
+    through `python -m`, export and import, card vs CPU, the bench
+    commands, serve and eval of the serve checkpoint), the sharded_http
+    phase (one HTTP front over two rank processes) and the entry phase at
+    a tiny size with the plain versions. It must exit non-zero and print no
     result line: a CPU run is no chip run."""
     out = subprocess.run(
         [sys.executable, "chip_smoke.py", "--rehearse-on-cpu", "--capacity", str(1 << 14),
@@ -207,10 +208,14 @@ def test_chip_smoke_rehearses_on_cpu():
     assert "their full rows and accumulators equal the payloads bit for bit" in out.stdout
     assert "check group_sharded parity (ragged exchange" in out.stdout
     assert "GroupScoringService(distributed=True) scores 32 requests" in out.stdout
+    assert "the stop op ended both ranks with 0" in out.stdout
+    assert "/retrieve over 4096 items equals the single-device keys" in out.stdout
+    assert "entry: forward of 256 x 8 ids" in out.stdout and "dryrun_multichip(1) passed" in out.stdout
     assert "rehearsal finished" in out.stdout
     assert '"ok": true' not in out.stdout
     assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke"))
     assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke_cli"))
+    assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke_http"))
 
 
 def test_port_imports_no_jax():
@@ -221,6 +226,7 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'meepoembedding_tpu.'))"
         " or m == 'meepoembedding_tpu']\n"
         "assert not bad, bad\n"
+        "assert 'meepoembedding_tpu_torch.entry' in sys.modules\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
