@@ -2,7 +2,8 @@
 """Run the PyTorch + CUDA port's serving (f32 and int8), row-sharded,
 column-sharded, training, table-lifecycle, model-zoo, embed-API, retrieval,
 table-group (single-device and sharded), command-line, HTTP-over-S-ranks
-and entry-point paths on one card and check them.
+and entry-point paths and its measurement harnesses on one card and check
+them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -335,6 +336,39 @@ Phases (any failure exits non-zero and prints no result line):
            cycle 1 set and 3 gathers (+ 3 K1 and 1 fetch-add to update), and
            1 gather a planning round; inspect and export launch nothing.
 
+  harness  the measurement harnesses (`meepoembedding_tpu_torch/bench/`),
+           each called in-process through its `run()` with the counters set
+           to 0 just before it, its log relayed: the headline at config 2's
+           width (2^27 slots, 107.4M live rows at fill 0.8, dim 32 f32,
+           18.5 GiB of table state; batches of 2^19 ids, 20 steps a window),
+           phases, stages and evict at the reference's sizes (2^25 slots;
+           stages 2^22), ckpt_full at 2^25 slots bf16 (cut from 2^27: 8.4 GB
+           on disk) under build/chip_smoke_harness/, removed at the end of
+           the phase, serving and retrieval at the reference's sizes,
+           sharded_overhead at its sizes with all four arms, scaling at S =
+           1 (a rank process). Fails unless each JSON line has the
+           reference's keys, the headline's dedup capacity held on every
+           step (its drop rate logged), ckpt_full's sample is bit-exact,
+           evict exported rows, sharded_overhead has no route drops, and
+           each harness launched every kernel (retrieval none: it times the
+           towers and the index only); the headline exactly the launches
+           its steps give (`headline_launches`). Every kernel call of a
+           harness goes through `held_kernels`: the first at each set of
+           planes and power-of-two size class of n is held against the
+           plain version on the same inputs (bit-exact, in-place calls on a
+           copy of their rows, which must be unique; the segment sum within
+           the summation-order bound), so the headline's dynamic cycle at
+           2^27, evict's exports and clears, ckpt_full's bf16 chunks and
+           restore sets and every other harness's shapes are checked in the
+           run that times them (scaling's rank 0 at S = 1 once more in this
+           process, as the hold cannot reach its rank process; retrieval
+           launches nothing). Then one cycle of each
+           static arm (the headline's two, phases' library arm) on a [2^27,
+           32] f32 plane against the plain versions on the CPU, within the
+           summation-order bound, and `python -m
+           meepoembedding_tpu_torch.bench.headline` in a subprocess at 2^20
+           slots, its last line parsed.
+
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. `--rehearse-on-cpu` runs every
 phase but the kernel checks and timings on the CPU at the sizes given (the
@@ -345,7 +379,8 @@ index; 2^12- to 2^14-slot group members; the cli phase's train, restore
 and bench at --capacity slots and --batch examples, 1 + 2 steps; the
 colsharded ranks on the CPU at --capacity slots; the sharded groups at
 2^12- to 2^13-slot members; the sharded_http ranks on the CPU at --capacity
-slots; the entry's dry run on one gloo rank) with the plain versions and,
+slots; the entry's dry run on one gloo rank; the harnesses at --capacity
+slots and a few steps, no static-arm check) with the plain versions and,
 with torch held to one thread in every process it starts, exits 1 without
 a result: a dry run of the control flow on machines without a card.
 """
@@ -362,6 +397,7 @@ import inspect
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3912,6 +3948,366 @@ def entry_phase(args, dev, card: str) -> dict:
     return counts
 
 
+# --- the measurement harnesses -------------------------------------------------
+
+HARNESS_DIR = ROOT / "build" / "chip_smoke_harness"  # ckpt_full's checkpoint, removed after
+HARNESS_STEPS = 20  # the headline's timed steps a window (the part to cut first)
+HARNESS_KEYS = {  # the reference scripts' JSON keys, in their order
+    "headline": ["metric", "value", "unit", "vs_baseline", "vs_sol_unique"],
+    "evict": ["metric", "capacity", "dim", "dtype", "live_rows", "scan_only_ms",
+              "with_exports_ms", "windowed_ms", "window_buckets", "max_evict_per_pass",
+              "evicted_rich"],
+    "ckpt_full": ["metric", "capacity", "dtype", "rows", "save_s", "gib", "mib_per_s",
+                  "restore_s", "sample_bit_exact"],
+    "serving": ["mode", "scores_per_sec", "p50_ms", "p99_ms", "table_mb"],
+    "index_build": ["phase", "items_per_sec", "items"],
+    "topk": ["phase", "queries_per_sec", "p50_ms", "p99_ms", "corpus", "k", "dim",
+             "index_dtype"],
+    "sharded_overhead": ["metric", "devices", "ids_per_step", "fused_ms", "sharded_ms",
+                         "overhead", "route_drops", "exchange_forced_ms", "exchange_overhead",
+                         "exchange_ragged_ms", "exchange_ragged_overhead", "group_ms",
+                         "group_sharded_ms", "group_overhead"],
+    "scaling": ["metric", "platform", "per_device_batch", "rates", "efficiency"],
+}
+
+
+def _held_rows(name: str, planes, idx):
+    """(the distinct rows of `idx` in range, idx mapped onto them (-1 out of
+    range), each plane's copy of those rows) for an in-place kernel's
+    check; raises on a repeated row, which the kernels' contract forbids
+    (on the card repeated rows race)."""
+    i = idx.long()
+    ok = (i >= 0) & (i < planes[0].shape[0])
+    rows = torch.unique(i[ok])
+    if rows.numel() != int(ok.sum()):
+        raise AssertionError(f"{name} given {int(ok.sum()) - rows.numel()} repeated rows")
+    local = torch.where(ok, torch.searchsorted(rows, i), -1).to(torch.int32)
+    return rows, local, [p[rows].clone() for p in planes]
+
+
+class _Held:
+    """A held wrapper of `kernel`: calls `fn`, reads the kernel's name and
+    launch count through."""
+
+    def __init__(self, kernel, fn):
+        self.kernel, self.fn, self.__name__ = kernel, fn, kernel.__name__
+
+    @property
+    def launches(self):
+        return self.kernel.launches
+
+    def __call__(self, *a, **k):
+        return self.fn(*a, **k)
+
+
+@contextlib.contextmanager
+def held_kernels(held: list):
+    """While inside, every kernel wrapper that a module of the port holds
+    (the kernels' own modules aside) is replaced by one that makes
+    the same call and, on the first call at each set of planes (shapes and
+    types) and power-of-two size class of n, holds it against the plain
+    version on the same inputs: gathers and sets bit-exact; the in-place
+    adds and sets on a copy of the rows they touch, bit-exact (rows unique,
+    as their contract asks, else it raises); the segment sum within the
+    summation-order bound. Appends (kernel, planes, n, max |kernel - plain|)
+    to `held` for each held call. Launches are the wrapped calls' own."""
+    seen = set()
+
+    def first(name, planes, n) -> bool:
+        key = (name, tuple((tuple(p.shape), p.dtype) for p in planes), max(n, 1).bit_length())
+        if key in seen:
+            return False
+        seen.add(key)
+        return True
+
+    def note(name, planes, n, err) -> None:
+        shapes = " + ".join(f"{tuple(p.shape)} {str(p.dtype).replace('torch.', '')}"
+                            for p in planes)
+        held.append((name, shapes, n, err))
+
+    def gather_multi(planes, idx):
+        out = row_gather_multi(planes, idx)
+        if first("row_gather", planes, idx.shape[0]):
+            note("row_gather", planes, idx.shape[0], max(
+                max_abs_err("row_gather", a, b)
+                for a, b in zip(out, row_gather_multi_plain(planes, idx))))
+        return out
+
+    def set_multi(planes, idx, values):
+        if not first("row_scatter_set", planes, idx.shape[0]):
+            return row_scatter_set_multi(planes, idx, values)
+        rows, local, copies = _held_rows("row_scatter_set", planes, idx)
+        row_scatter_set_multi(planes, idx, values)
+        row_scatter_set_multi_plain(copies, local, values)
+        note("row_scatter_set", planes, idx.shape[0], max(
+            max_abs_err("row_scatter_set", p[rows], c) for p, c in zip(planes, copies)))
+
+    def scatter_add(plane, idx, upd, old=None):
+        if not first("row_scatter_add", [plane], idx.shape[0]):
+            return row_scatter_add(plane, idx, upd, old)
+        rows, local, (copy,) = _held_rows("row_scatter_add", [plane], idx)
+        row_scatter_add(plane, idx, upd, old)
+        old_plain = None if old is None else torch.empty_like(old)
+        row_scatter_add_plain(copy, local, upd, old_plain)
+        err = max_abs_err("row_scatter_add", plane[rows], copy)
+        if old is not None:
+            err = max(err, max_abs_err("row_scatter_add old", old, old_plain))
+        note("row_scatter_add", [plane], idx.shape[0], err)
+        return plane
+
+    def merge_add(plane, vrow, upd):
+        if not first("row_merge_add", [plane], vrow.shape[0]):
+            return row_merge_add(plane, vrow, upd)
+        rows, local, (copy,) = _held_rows("row_merge_add", [plane], vrow)
+        row_merge_add(plane, vrow, upd)
+        row_merge_add_plain(copy, local, upd)
+        note("row_merge_add", [plane], vrow.shape[0],
+             max_abs_err("row_merge_add", plane[rows], copy))
+        return plane
+
+    def seg_sum(upd, vrow, num_rows, order=None, sorted_rows=None):
+        out = segment_sum(upd, vrow, num_rows, order, sorted_rows)
+        if first("segment_sum", [upd], vrow.shape[0]):
+            zero = torch.zeros_like(out)
+            want = row_merge_add_plain(zero.clone(), vrow, upd)
+            note("segment_sum", [upd], vrow.shape[0],
+                 within_order_bound(out, want, order_bound(zero, vrow, upd)))
+        return out
+
+    wrap = {"row_gather": lambda plane, idx: gather_multi((plane,), idx)[0],
+            "row_gather_multi": gather_multi,
+            "row_scatter_set": lambda plane, idx, upd: set_multi((plane,), idx, (upd,)) or plane,
+            "row_scatter_set_multi": set_multi, "row_scatter_add": scatter_add,
+            "row_merge_add": merge_add, "segment_sum": seg_sum}
+    orig = {k.__name__: k for k in (row_gather, row_gather_multi, row_scatter_set,
+                                    row_scatter_set_multi, row_scatter_add, row_merge_add,
+                                    segment_sum)}
+    patched = []
+    for modname, mod in list(sys.modules.items()):
+        if modname.startswith("meepoembedding_tpu_torch") and \
+                not modname.startswith("meepoembedding_tpu_torch.kernels"):
+            for name in orig:
+                if getattr(mod, name, None) is orig[name]:
+                    setattr(mod, name, _Held(orig[name], wrap[name]))
+                    patched.append((mod, name))
+    try:
+        yield
+    finally:
+        for mod, name in patched:
+            setattr(mod, name, orig[name])
+
+
+def held_summary(held: list) -> str:
+    """The held calls, one `kernel planes n=..` a call, and the largest error."""
+    calls = "; ".join(f"{k} {shapes} n={n}" for k, shapes, n, _ in held)
+    return (f"{len(held)} calls held against the plain versions on the same inputs, "
+            f"max |kernel - plain| {max((e for *_, e in held), default=0.0)}: {calls}")
+
+
+def harness_sizes(args, rehearse: bool) -> dict:
+    """Each harness's knobs: the module docstring's sizes on the card, tiny
+    ones in a rehearsal."""
+    arms = "fast,exchange,ragged,group"
+    if rehearse:
+        cap = args.capacity
+        return {
+            "headline": dict(cap=cap, batch=1024, steps=2),
+            "phases": dict(cap=cap, batch=1024, steps=2, windows=1),
+            "stages": dict(cap=cap, batch=1024),
+            "evict": dict(cap=cap, reps=2, window=16),
+            "ckpt_full": dict(cap=cap, ckpt_dir=str(HARNESS_DIR / "ckpt"), sample=500),
+            "serving": dict(rows=2048, batch=64, steps=3),
+            "retrieval": dict(items=4096, batch=32, steps=2),
+            "sharded_overhead": dict(cap=4 * cap, batch=64, feats=8, steps=2, prefill=2,
+                                     arms=arms),
+            "scaling": dict(devices="1", batch=64, steps=2),
+        }
+    return {
+        "headline": dict(cap=1 << 27, batch=1 << 19, steps=HARNESS_STEPS),
+        "phases": {}, "stages": {}, "evict": {},
+        "ckpt_full": dict(cap=1 << 25, ckpt_dir=str(HARNESS_DIR / "ckpt")),
+        "serving": {}, "retrieval": {},
+        "sharded_overhead": dict(arms=arms),
+        "scaling": dict(devices="1", batch=1024, steps=10),  # the reference's defaults
+    }
+
+
+def headline_launches(cap: int, batch: int, steps: int, rounds: int) -> dict:
+    """The headline's launches, from its steps: P prefill batches (a
+    lookup_train of 2 gathers and 1 set, the update's fetch-add and values
+    add), 1 + 3 x steps dynamic cycles (the train phase's step without the
+    tower: 3 gathers, 1 set, 1 fetch-add, 3 K1), as many cycles of the
+    all-rows static arm (1 gather; the segment sum's 2 K1 and the add) and
+    of the dedup-aware arm (2 gathers, 3 K1), and 1 gather a planning
+    round (max_probe_rounds 2: one probe gather)."""
+    n_live = int(cap * 0.8)
+    P = -(-n_live // min(batch, 1 << 20, n_live))
+    C = 1 + 3 * steps
+    return {"row_gather": 2 * P + 3 * C + C + 2 * C + rounds, "row_scatter_set": P + C,
+            "row_scatter_add": P + C, "row_merge_add": P + 3 * C + 3 * C + 3 * C}
+
+
+def check_static_arms(seed: int) -> None:
+    """The static arms the headline and phases harnesses time, one cycle
+    each on the card, on a [2^27, 32] f32 plane from --seed at the
+    headline's batch (2^19 slots drawn with repeats from 107.4M rows; the
+    dedup-aware arm on one batch of its Zipf stream), against the same
+    cycle through the plain versions on the CPU, on the rows it touches:
+    within the summation-order bound, where a race on a repeated row (an
+    update lost) would show."""
+    from meepoembedding_tpu_torch.bench import _common, headline, phases
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 211)
+    R, batch, gseed = 1 << 27, 1 << 19, 1e-4
+    n_live = int(R * 0.8)
+    values = torch.randn((R, 32), device=dev, generator=g)
+    slot = torch.randint(0, n_live, (batch,), device=dev, generator=g, dtype=torch.int32)
+    keys = _common.IdStream(n_live, batch).keys()
+    ucap = -(-int(len(np.unique(keys)) * 1.15) // 128) * 128
+    su, inv, order, srt = headline.unique_batch(keys, ucap, dev)
+    static = (slot, *headline.unique_batch(slot.cpu().numpy(), batch, dev))
+    # (name, arm, its arguments on the card, which of them index the plane, the
+    # row each draw updates)
+    arms = (("static, segment_sum + row_merge_add", headline.static_cycle, static, (0, 1), slot),
+            ("static, library index_add_", phases.static_library_cycle, (slot,), (0,), slot),
+            ("dedup-aware static", headline.static_unique_cycle, (su, inv, order, srt), (0,),
+             su[inv.long()]))
+    for name, fn, card_args, plane_args, per_draw in arms:
+        rows = torch.unique(per_draw).long()
+
+        def local(ix):
+            return torch.where(ix >= 0, torch.searchsorted(rows, ix.long()), -1).to(
+                torch.int32).cpu()
+
+        before = values[rows].cpu()
+        want = before.clone()
+        cpu_args = tuple(local(a) if k in plane_args else a.cpu()
+                         for k, a in enumerate(card_args))
+        fn(want, *cpu_args, gseed)
+        fn(values, *card_args, gseed)
+        torch.cuda.synchronize()
+        vrow = local(per_draw)
+        upd = -0.05 * (before[vrow.long()] * 1e-3 + gseed)
+        err = within_order_bound(values[rows].cpu(), want, order_bound(before, vrow, upd))
+        log(f"check harness {name}: one cycle of {batch} draws onto {rows.shape[0]} rows "
+            f"of a [{R}, 32] f32 plane equals the plain versions' within the summation-order "
+            f"bound (max |card - plain| {err})")
+    del values
+    torch.cuda.empty_cache()
+
+
+def harness_phase(args, dev, card: str) -> dict:
+    """The harness phase (module docstring). Returns the launches of its
+    in-process runs plus scaling's rank 0."""
+    from meepoembedding_tpu_torch.bench import (
+        ckpt_full,
+        evict,
+        headline,
+        phases,
+        retrieval,
+        scaling,
+        serving,
+        sharded_overhead,
+        stages,
+    )
+
+    rehearse = dev.type == "cpu"
+    sizes = harness_sizes(args, rehearse)
+    total = {k: 0 for k in launches()}
+    shutil.rmtree(HARNESS_DIR, ignore_errors=True)
+    try:
+        for name, mod in (("headline", headline), ("phases", phases), ("stages", stages),
+                          ("evict", evict), ("ckpt_full", ckpt_full), ("serving", serving),
+                          ("retrieval", retrieval), ("sharded_overhead", sharded_overhead),
+                          ("scaling", scaling)):
+            gc.collect()
+            if not rehearse:
+                torch.cuda.empty_cache()
+            reset_launches()
+            err, held = io.StringIO(), []
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stderr(err), held_kernels(held):
+                    res = mod.run(device=dev, **sizes[name])
+            finally:
+                for line in err.getvalue().splitlines():
+                    log(f"harness {name} | {line}")
+            secs = time.perf_counter() - t0
+            counts, rounds = launches(), table_ops.plan_insert.rounds
+            if name == "scaling":  # its ranks are processes of their own
+                counts = json.loads(re.search(r"^S=1: rank 0 launches (.*)$", err.getvalue(),
+                                              re.M).group(1))
+                # rank 0 of S = 1 once more in this process, its calls held
+                HARNESS_DIR.mkdir(parents=True, exist_ok=True)
+                with held_kernels(held):
+                    scaling.rank_main(0, 1, str(HARNESS_DIR), dev.type, sizes[name]["batch"],
+                                      sizes[name]["steps"])
+            log(f"harness {name}: {held_summary(held)}")
+            if not held and name != "retrieval":
+                raise AssertionError(f"harness {name}: no kernel call was held")
+            for line in res.values() if name in ("serving", "retrieval") else (res,):
+                key = {"serving": "serving", "retrieval": line.get("phase")}.get(name, name)
+                if key in HARNESS_KEYS and list(line) != HARNESS_KEYS[key]:
+                    raise AssertionError(f"harness {name}: keys {list(line)}, not the "
+                                         f"reference's {HARNESS_KEYS[key]}")
+                log(f"harness {name}: {json.dumps(line)}")
+            if name == "phases" and [p["name"] for p in res["phases"]] != [
+                    n for n, _ in phases.STEPS]:
+                raise AssertionError(f"phases: steps {res['phases']}")
+            if name == "stages" and len(res["stages"]) != len(stages.STAGES):
+                raise AssertionError(f"stages: {res['stages']}")
+            if name == "evict" and res["evicted_rich"] < 1:
+                raise AssertionError("evict: the candidate-rich passes exported no row")
+            if name == "ckpt_full" and res.get("sample_bit_exact") is not True:
+                raise AssertionError(f"ckpt_full: {res}")
+            if name == "sharded_overhead" and res["route_drops"] != 0:
+                raise AssertionError(f"sharded_overhead: {res['route_drops']} route drops")
+            if name == "headline":
+                drop = re.search(r"drop rate ([\d.e+-]+)", err.getvalue()).group(1)
+                log(f"harness headline: dedup capacity held on every step; drop rate {drop}")
+            if not rehearse:
+                if name == "retrieval":  # towers and the index only, as the reference
+                    if any(counts.values()):
+                        raise AssertionError(f"retrieval launched {counts}, not nothing")
+                elif min(counts.values()) <= 0:
+                    raise AssertionError(f"the {name} harness never launched "
+                                         f"{[k for k, v in counts.items() if v <= 0]}")
+                if name == "headline":
+                    want = headline_launches(**{k: sizes[name][k] for k in
+                                                ("cap", "batch", "steps")}, rounds=rounds)
+                    if counts != want:
+                        raise AssertionError(f"the headline launched {counts}, not {want} "
+                                             f"({rounds} planning rounds)")
+            add_counts(total, {"launches": counts})
+            log(f"harness {name}: {secs:.1f} s; launches {counts} on {card}")
+    finally:
+        shutil.rmtree(HARNESS_DIR, ignore_errors=True)
+    if not rehearse:
+        check_static_arms(args.seed)
+
+    # the user's entry point, in a process of its own
+    env = dict(os.environ, PYTHONPATH=str(ROOT), MEEPO_BENCH_CAP=str(1 << 20),
+               MEEPO_BENCH_BATCH=str(1 << 16), MEEPO_BENCH_STEPS="3")
+    if rehearse:
+        env.update(MEEPO_BENCH_CAP=str(args.capacity), MEEPO_BENCH_BATCH="1024",
+                   MEEPO_BENCH_STEPS="2")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "meepoembedding_tpu_torch.bench.headline",
+                           "--device", dev.type], capture_output=True, text=True, timeout=600,
+                          cwd=str(ROOT), env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m meepoembedding_tpu_torch.bench.headline exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    first = proc.stderr.splitlines()[0]
+    if list(line) != HARNESS_KEYS["headline"] or first != ("cpu" if rehearse else card):
+        raise AssertionError(f"the headline subprocess printed {line} after {first!r}")
+    log(f"harness: python -m meepoembedding_tpu_torch.bench.headline at "
+        f"{env['MEEPO_BENCH_CAP']} slots in {time.perf_counter() - t0:.1f} s: {json.dumps(line)}")
+    return total
+
+
 # --- main ----------------------------------------------------------------------
 
 # --- the model zoo ---------------------------------------------------------------
@@ -4469,6 +4865,7 @@ def run_phases(args) -> int:
         group_sharded_phase(args, 0.0, cpu, card)
         sharded_http_phase(args, res["http_single"], cpu, card)
         entry_phase(args, cpu, card)
+        harness_phase(args, cpu, card)
         log(f"rehearsal finished in {time.perf_counter() - t_start:.1f} s")
         return 1
 
@@ -4676,6 +5073,12 @@ def run_phases(args) -> int:
     # the entry points of entry.py, the counters set to 0 just before the forward
     reset_launches()
     phase_counts["entry"] = entry_phase(args, cuda, card)
+
+    # the measurement harnesses, each with the counters set to 0 just before it
+    t0 = time.perf_counter()
+    phase_counts["harness"] = harness_phase(args, cuda, card)
+    log(f"harness: phase finished in {time.perf_counter() - t0:.1f} s; launches "
+        f"{phase_counts['harness']} on {card}")
     meta = {
         "row_gather": ("meepoembedding_tpu_torch/csrc/row_gather.cu",
                        "meepoembedding_tpu/table/pallas_ops.py:58"),

@@ -570,16 +570,21 @@ def cmd_train(args) -> int:
 
 def _bench_table(args, update: bool) -> int:
     """Ids a second through the table path a training step takes, without
-    the tower, with the reference's method: a table of `--rows` slots
-    (max_probe_rounds 2, insert_cap 2^15, rowwise AdaGrad) prefilled to 80%
-    with golden-ratio ids, a bounded Zipf(1.05) id stream, a dedup capacity
-    of max(1024, batch / 2), the best of 3 windows of `--steps` steps, and
-    the host read of step i-2's sum as the barrier. A lookup step is the
-    dedup, `lookup_train` and the rows in batch order; an update step adds
-    the segment sum of their gradients and the sparse update."""
-    from meepoembedding_tpu_torch.kernels import row_gather
-    from meepoembedding_tpu_torch.ops import dedup, optim
-    from meepoembedding_tpu_torch.table import hashing, table_ops
+    the tower, with the reference's method (`bench/_common.py`): a table
+    of `--rows` slots (max_probe_rounds 2, insert_cap 2^15, rowwise
+    AdaGrad) prefilled to 80% with golden-ratio ids, a bounded Zipf(1.05)
+    id stream, a dedup capacity of max(1024, batch / 2), the best of 3
+    windows of `--steps` steps, and the host read of step i-2's sum as the
+    barrier. A lookup step is the dedup, `lookup_train` and the rows in
+    batch order; an update step adds the segment sum of their gradients
+    and the sparse update."""
+    from meepoembedding_tpu_torch.bench._common import (
+        IdStream,
+        prefill,
+        timed_windows,
+        to_device,
+        train_cycle,
+    )
     from meepoembedding_tpu_torch.table.layout import TableSpec, alloc_shard
 
     dev = resolve_device(args.device)
@@ -593,54 +598,18 @@ def _bench_table(args, update: bool) -> int:
     )
     spec = TableSpec.from_config(cfg)
     shard = alloc_shard(spec, dev)
-    rng = np.random.default_rng(0)
     n_live = int(rows * 0.8)
-    spec_prefill = dataclasses.replace(spec, insert_cap=None)
-    mult = np.int64(0x9E3779B97F4A7C15 & 0x7FFFFFFFFFFFFFFF)
-
-    def on_device(ids: np.ndarray):
-        hi, lo = hashing.split_ids(ids)
-        return torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
-
+    prefill(dataclasses.replace(spec, insert_cap=None), shard, n_live, min(batch, 1 << 20), 0)
+    ucap = max(1024, batch // 2)  # ~35% unique under the zipf stream
+    stream = IdStream(n_live, batch, 1.05)
     with torch.no_grad():
-        pf = min(batch, 1 << 20)
-        for i in range(0, n_live, pf):
-            hi, lo = on_device((np.arange(i, i + pf, dtype=np.int64) % n_live) * mult)
-            init = hashing.default_rows(hi, lo, spec.dim, spec.initializer_scale, spec.dtype,
-                                        kind=spec.initializer,
-                                        lane_offset=spec.init_lane_offset)
-            table_ops.insert_rows(spec_prefill, shard, hi, lo, init, hashing.is_valid(hi, lo), 0)
+        batches = [to_device(stream.ids(), dev) for _ in range(args.steps)]
 
-        ucap = max(1024, batch // 2)  # ~35% unique under the zipf stream
+        def cycle(i: int):
+            return train_cycle(spec, shard, *batches[i], ucap, 1, update=update)[0]
 
-        def cycle(hi, lo):
-            uniq = dedup.unique_pairs(hi, lo, ucap)
-            ctx = table_ops.lookup_train(spec, shard, uniq.hi, uniq.lo, uniq.valid, 1)
-            out = row_gather(ctx.rows_u, uniq.inverse)
-            if update:
-                g = dedup.segment_sum_grads(out * 1e-3, uniq.inverse, ucap, uniq.order,
-                                            uniq.sorted_ids)
-                optim.apply_sparse_grads_ctx(spec, shard, ctx, g)
-            return out.sum()
-
-        batches = []
-        t = 1.0 - 1.05  # bounded Zipf(1.05)
-        for _ in range(args.steps):
-            u = rng.random(batch)
-            k = ((float(n_live) ** t - 1.0) * u + 1.0) ** (1.0 / t)
-            batches.append(on_device((np.minimum(k.astype(np.int64), n_live) - 1) * mult))
-        float(cycle(*batches[0]))  # warm-up
-        windows = []
-        for _w in range(3):  # best of 3: the first window carries warm-up noise
-            t0 = time.perf_counter()
-            accs = []
-            for i, (h, lo) in enumerate(batches):
-                accs.append(cycle(h, lo))
-                # depth-capped host-read barrier, as the reference
-                if i >= 2:
-                    float(accs[i - 2])
-            float(accs[-1])
-            windows.append((time.perf_counter() - t0) / args.steps)
+        float(cycle(0))  # warm-up
+        windows = timed_windows(cycle, args.steps)
     dt = min(windows)
     name = "update" if update else "lookup"
     print(json.dumps({

@@ -565,3 +565,21 @@ def test_cli_bench_update_on_card(capsys):
     # 1 warm-up + 3 windows of 2 steps, each through the kernels
     for k in (row_gather, row_scatter_add, row_merge_add):
         assert k.launches - before[k.__name__] >= 7, k.__name__
+
+
+@pytest.mark.gpu
+def test_headline_harness_on_card(capsys):
+    """The headline harness at a small table on the card: the reference's
+    JSON keys, positive ratios, and every step through the kernels."""
+    from meepoembedding_tpu_torch.bench import headline
+
+    _cuda()
+    before = {k.__name__: k.launches for k in (row_gather, row_scatter_add, row_merge_add)}
+    got = headline.run(device="cuda", cap=1 << 18, batch=1 << 14, steps=2)
+    assert list(got) == ["metric", "value", "unit", "vs_baseline", "vs_sol_unique"]
+    assert got["metric"] == "lookup_update_ids_per_sec_per_chip" and got["value"] > 0
+    assert got["vs_baseline"] > 0 and got["vs_sol_unique"] > 0
+    assert capsys.readouterr().err.splitlines()[0] != "cpu"  # the card's line first
+    # 1 warm-up + 3 windows of 2 steps of each of the three arms
+    for k in (row_gather, row_scatter_add, row_merge_add):
+        assert k.launches - before[k.__name__] >= 7, k.__name__

@@ -174,8 +174,9 @@ def test_chip_smoke_rehearses_on_cpu():
     embed, retrieval, group and group_sharded phases, the cli phase (train
     through `python -m`, export and import, card vs CPU, the bench
     commands, serve and eval of the serve checkpoint), the sharded_http
-    phase (one HTTP front over two rank processes) and the entry phase at
-    a tiny size with the plain versions. It must exit non-zero and print no
+    phase (one HTTP front over two rank processes), the entry phase and
+    the harness phase (every `bench/` harness, and the headline's `python
+    -m`) at a tiny size with the plain versions. It must exit non-zero and print no
     result line: a CPU run is no chip run."""
     out = subprocess.run(
         [sys.executable, "chip_smoke.py", "--rehearse-on-cpu", "--capacity", str(1 << 14),
@@ -207,6 +208,9 @@ def test_chip_smoke_rehearses_on_cpu():
     assert "accumulator bit-identical across the columns" in out.stdout
     assert "their full rows and accumulators equal the payloads bit for bit" in out.stdout
     assert "check group_sharded parity (ragged exchange" in out.stdout
+    assert "harness ckpt_full: " in out.stdout and '"sample_bit_exact": true' in out.stdout
+    assert "harness: python -m meepoembedding_tpu_torch.bench.headline" in out.stdout
+    assert "calls held against the plain versions on the same inputs" in out.stdout
     assert "GroupScoringService(distributed=True) scores 32 requests" in out.stdout
     assert "the stop op ended both ranks with 0" in out.stdout
     assert "/retrieve over 4096 items equals the single-device keys" in out.stdout
@@ -227,6 +231,7 @@ def test_port_imports_no_jax():
         " or m == 'meepoembedding_tpu']\n"
         "assert not bad, bad\n"
         "assert 'meepoembedding_tpu_torch.entry' in sys.modules\n"
+        "assert 'meepoembedding_tpu_torch.bench.headline' in sys.modules\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
