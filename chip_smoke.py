@@ -2,8 +2,8 @@
 """Run the PyTorch + CUDA port's serving (f32 and int8), row-sharded,
 column-sharded, training, table-lifecycle, model-zoo, embed-API, retrieval,
 table-group (single-device and sharded), command-line, HTTP-over-S-ranks
-and entry-point paths and its measurement harnesses on one card and check
-them.
+and entry-point paths, its measurement harnesses and its random-row copy
+probe on one card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -368,6 +368,29 @@ Phases (any failure exits non-zero and prints no result line):
            summation-order bound, and `python -m
            meepoembedding_tpu_torch.bench.headline` in a subprocess at 2^20
            slots, its last line parsed.
+  dma      the random-row copy probe's kernels, K6 and K7
+           (`row_block_gather`, `row_block_scatter`; nothing launches them
+           before this phase, whose first act is to read their counters:
+           0). Each against its plain version, bit for bit, at every (R, W)
+           of bench_dma.py's sweeps (gather R 1-32 x W 8-256, scatter R 1,
+           4, 16 x W 32, 256; W capped at the ring that fits a block) on a
+           [2^22, 128] f32 plane with 2^16 descriptors: the gather's bases
+           random with the clip edge in front, every W giving the same
+           bits; the scatter's random rows into disjoint blocks, clipped at
+           both ends; then a ring that does not fit must be refused. Then,
+           with every counter set to 0 just before them, `bench.dma`,
+           `bench.row_kernels` and `bench.dedup_variants` at their defaults
+           in-process, their logs relayed and JSON lines logged, their
+           kernel calls held against the plain versions (`held_kernels`;
+           K6 / K7 once at each (R, W) on bench.dma's own stream, the
+           scatter's shared rows each holding one of its writers' rows),
+           failing where a harness launched a kernel and held none; fails
+           unless bench.dma's line has its keys, 14 capped rings and a
+           blocks-per-SM figure at every point, and the path launched K6,
+           K7, row_gather, row_scatter_add and row_scatter_set. Then each
+           sweep point timed on bench.dma's stream (`time_dma_kernels`):
+           kernel, plain, library (R = 1), bound, and the profiler's device
+           time at R = 1, W = 32, the kernels line's main point.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. `--rehearse-on-cpu` runs every
@@ -380,7 +403,8 @@ and bench at --capacity slots and --batch examples, 1 + 2 steps; the
 colsharded ranks on the CPU at --capacity slots; the sharded groups at
 2^12- to 2^13-slot members; the sharded_http ranks on the CPU at --capacity
 slots; the entry's dry run on one gloo rank; the harnesses at --capacity
-slots and a few steps, no static-arm check) with the plain versions and,
+slots and a few steps, no static-arm check; the dma phase's checks and
+harnesses on a [4096, 128] plane, no timing) with the plain versions and,
 with torch held to one thread in every process it starts, exits 1 without
 a result: a dry run of the control flow on machines without a card.
 """
@@ -435,6 +459,10 @@ from meepoembedding_tpu_torch.metrics import StreamingAUC
 from meepoembedding_tpu_torch.group_train import GroupTrainer, ShardedGroupTrainer
 from meepoembedding_tpu_torch.kernels import (
     _build,
+    row_block_gather,
+    row_block_gather_plain,
+    row_block_scatter,
+    row_block_scatter_plain,
     row_gather,
     row_gather_multi,
     row_gather_multi_plain,
@@ -450,6 +478,7 @@ from meepoembedding_tpu_torch.kernels import (
     segment_size,
     segment_sum,
 )
+from meepoembedding_tpu_torch.kernels.row_block_copy import block_rows
 from meepoembedding_tpu_torch.ops import dedup
 from meepoembedding_tpu_torch.parallel import mesh as pmesh
 from meepoembedding_tpu_torch.parallel import multihost
@@ -966,10 +995,17 @@ def make_request(rng, pools, batch, nsparse, unknown_frac=0.1):
 
 
 KERNELS = (row_gather, row_scatter_set, row_scatter_add, row_merge_add)
+# the DMA probe's kernels (K6, K7): only the dma phase launches them, and
+# their counters are set to 0 only there
+DMA_KERNELS = (row_block_gather, row_block_scatter)
 
 
 def launches() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def dma_launches() -> dict:
+    return {k.__name__: k.launches for k in DMA_KERNELS}
 
 
 def reset_launches() -> None:
@@ -1316,7 +1352,7 @@ def device_us(e) -> float:
 
 # the __global__ functions of the repo's kernels: a wrapper's launch is one of them
 OUR_KERNELS = ("row_gather_vecs", "row_set_kernel", "row_add_vecs", "add_unique",
-               "segment_walk", "segment_combine")
+               "segment_walk", "segment_combine", "row_block_copy")
 PROFILE_SESSIONS = 3  # profiler sessions device_ms tries before "not measured"
 L2_FLUSH_WORDS = 1 << 26  # 256 MB of int32, five times the 50 MB L2
 
@@ -1358,13 +1394,13 @@ def profile_pass(fns, host: bool = True, flush: bool = True, warmup: bool = True
     torch.cuda.synchronize()
     with profile(activities=acts, schedule=sched) as prof:
         for _ in range(2 if warmup else 1):
-            made = sum(launches().values())
+            made = sum(launches().values()) + sum(dma_launches().values())
             for fn in fns:
                 if flush:
                     buf.bitwise_not_()
                 fn()
             torch.cuda.synchronize()
-            made = sum(launches().values()) - made
+            made = sum(launches().values()) + sum(dma_launches().values()) - made
             if warmup:
                 prof.step()
     # the schedule's ProfilerStep spans the whole pass on the device too
@@ -1472,10 +1508,10 @@ def gather_entry(label, planes, idxs) -> dict:
     return e
 
 
-def host_time(name: str, fn, calls: int = 200) -> None:
-    """Host time of one wrapper call: the mean of `calls` calls on the host
-    clock, with no synchronisation between them (a launch is timed by its
-    enqueue)."""
+def host_time(name: str, fn, calls: int = 200) -> float:
+    """Host time of one wrapper call, logged and returned in us: the mean
+    of `calls` calls on the host clock, with no synchronisation between
+    them (a launch is timed by its enqueue)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1484,6 +1520,7 @@ def host_time(name: str, fn, calls: int = 200) -> None:
     us = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
     log(f"host {name}: {us:.2f} us a call")
+    return us
 
 
 def fmt_ms(ms) -> str:
@@ -4009,12 +4046,17 @@ def held_kernels(held: list):
     version on the same inputs: gathers and sets bit-exact; the in-place
     adds and sets on a copy of the rows they touch, bit-exact (rows unique,
     as their contract asks, else it raises); the segment sum within the
-    summation-order bound. Appends (kernel, planes, n, max |kernel - plain|)
-    to `held` for each held call. Launches are the wrapped calls' own."""
+    summation-order bound; the block copies K6 / K7 once at each (R, W)
+    too, the gather bit-exact, the scatter bit-exact where its blocks are
+    disjoint and, on a row that blocks share, equal to one of its writers'
+    rows (the kernel's contract). Appends (kernel, planes, n, max |kernel -
+    plain|) to `held` for each held call. Launches are the wrapped calls'
+    own."""
     seen = set()
 
-    def first(name, planes, n) -> bool:
-        key = (name, tuple((tuple(p.shape), p.dtype) for p in planes), max(n, 1).bit_length())
+    def first(name, planes, n, extra=()) -> bool:
+        key = (name, tuple((tuple(p.shape), p.dtype) for p in planes), max(n, 1).bit_length(),
+               extra)
         if key in seen:
             return False
         seen.add(key)
@@ -4074,14 +4116,43 @@ def held_kernels(held: list):
                  within_order_bound(out, want, order_bound(zero, vrow, upd)))
         return out
 
+    def block_gather(plane, base, R, W):
+        out = row_block_gather(plane, base, R, W)
+        if first("row_block_gather", [plane], base.shape[0], (R, W)):
+            note(f"row_block_gather R={R} W={W}", [plane], base.shape[0], max_abs_err(
+                "row_block_gather", out, row_block_gather_plain(plane, base, R)))
+        return out
+
+    def block_scatter(plane, base, upd, R, W):
+        if not first("row_block_scatter", [plane], base.shape[0], (R, W)):
+            return row_block_scatter(plane, base, upd, R, W)
+        rows = block_rows(base, R, plane.shape[0])
+        row_block_scatter(plane, base, upd, R, W)
+        uniq, inv = torch.unique(rows, return_inverse=True)
+        shared = rows.numel() - uniq.numel()
+        if not shared:  # the plain version's rows: upd's, in order
+            err = max_abs_err("row_block_scatter", plane[rows], upd)
+        else:
+            hit = (_bits(plane[rows]) == _bits(upd)).all(1).to(torch.int32)
+            won = torch.zeros_like(uniq, dtype=torch.int32).scatter_reduce_(0, inv, hit, "amax")
+            if not bool(won.all()):
+                raise AssertionError(f"row_block_scatter R={R} W={W}: {int((won == 0).sum())} "
+                                     f"rows hold none of their writers' rows")
+            err = 0.0
+        note(f"row_block_scatter R={R} W={W}" + (f" ({shared} writes to rows blocks share)"
+                                                  if shared else ""),
+             [plane], base.shape[0], err)
+        return plane
+
     wrap = {"row_gather": lambda plane, idx: gather_multi((plane,), idx)[0],
             "row_gather_multi": gather_multi,
             "row_scatter_set": lambda plane, idx, upd: set_multi((plane,), idx, (upd,)) or plane,
             "row_scatter_set_multi": set_multi, "row_scatter_add": scatter_add,
-            "row_merge_add": merge_add, "segment_sum": seg_sum}
+            "row_merge_add": merge_add, "segment_sum": seg_sum,
+            "row_block_gather": block_gather, "row_block_scatter": block_scatter}
     orig = {k.__name__: k for k in (row_gather, row_gather_multi, row_scatter_set,
                                     row_scatter_set_multi, row_scatter_add, row_merge_add,
-                                    segment_sum)}
+                                    segment_sum, row_block_gather, row_block_scatter)}
     patched = []
     for modname, mod in list(sys.modules.items()):
         if modname.startswith("meepoembedding_tpu_torch") and \
@@ -4306,6 +4377,205 @@ def harness_phase(args, dev, card: str) -> dict:
     log(f"harness: python -m meepoembedding_tpu_torch.bench.headline at "
         f"{env['MEEPO_BENCH_CAP']} slots in {time.perf_counter() - t0:.1f} s: {json.dumps(line)}")
     return total
+
+
+# --- the random-row copy probe (K6, K7) -------------------------------------------
+
+DMA_KEYS = ["metric", "value", "unit", "best_amortized_ns_per_row", "library_take_ns_per_row",
+            "sweep", "w_effective", "blocks_per_sm", "copies_in_flight", "row_gather_shipped"]
+DMA_MAIN = (1, 32)  # the (R, W) of the kernels line; the other points go under `shapes`
+
+
+def dma_sweeps() -> dict:
+    """{kernel name: (its R values, its W values)}: bench_dma.py's sweeps."""
+    from meepoembedding_tpu_torch.bench import dma
+
+    return {"row_block_gather": (dma.GATHER_R, dma.GATHER_W),
+            "row_block_scatter": (dma.SCATTER_R, dma.SCATTER_W)}
+
+
+def check_dma_kernels(seed: int, dev, nrow: int, n: int) -> dict:
+    """K6 and K7 against their plain versions, bit for bit, at every (R, W)
+    of bench_dma.py's sweeps on an [nrow, 128] f32 plane, W capped at the
+    ring that fits (`max_ring`): every W of an R gives the plain version's
+    bits, so every W gives the same. The
+    gather's n bases are random with the clip edge in front (below 0, at
+    and above nrow - R, the int32 extremes). The scatter writes random rows
+    into disjoint blocks: distinct multiples of 32, and the bases -7 and
+    nrow + 5, which clip into block 0 and the top block, where no other
+    base goes. Then a ring that does not fit must be refused. Returns
+    {(kernel, R, W): max |kernel - plain|}."""
+    from meepoembedding_tpu_torch.kernels.row_block_copy import max_ring
+
+    g = torch.Generator(device=dev).manual_seed(seed + 313)
+    plane = torch.randn((nrow, LANES), device=dev, generator=g)
+    errs = {}
+    for name, (rs, ws) in dma_sweeps().items():
+        gather = name == "row_block_gather"
+        for R in rs:
+            if gather:
+                base = torch.randint(0, nrow - R + 1, (n,), device=dev, dtype=torch.int32,
+                                     generator=g)
+                edge = [-(2**31), -7, 0, nrow - R, nrow - R + 1, nrow - 1, nrow, nrow + 5,
+                        2**31 - 1]
+                base[:len(edge)] = torch.tensor(edge, dtype=torch.int32, device=dev)
+                want = row_block_gather_plain(plane, base, R)
+                what = "random bases, the clip edge in front"
+            else:
+                blocks = torch.randperm(nrow // 32 - 2, device=dev, generator=g)[:n] + 1
+                base = (blocks * 32).to(torch.int32)
+                base[0], base[1] = nrow + 5, -7
+                upd = torch.randn((base.shape[0] * R, LANES), device=dev, generator=g)
+                want = row_block_scatter_plain(plane.clone(), base, upd, R)
+                what = "disjoint blocks of random rows, clipped at both ends"
+            for W in ws:
+                w = min(W, max_ring(R))
+                got = (row_block_gather(plane, base, R, w) if gather
+                       else row_block_scatter(plane.clone(), base, upd, R, w))
+                sync(dev)
+                errs[(name, R, W)] = max_abs_err(f"{name} R={R} W={w}", got, want)
+                del got
+            log(f"check {name} R={R}, W in {list(ws)} (run at "
+                f"{[min(W, max_ring(R)) for W in ws]}): [{nrow}, 128] f32, {base.shape[0]} "
+                f"descriptors, {what}: bit-exact, the same bits at every W")
+            del want
+    try:
+        row_block_gather(plane, base[:8], 32, 32)
+    except ValueError as e:
+        log(f"check row_block_gather: a ring that does not fit is refused ({e})")
+    else:
+        raise AssertionError("row_block_gather took a ring that does not fit a block")
+    del plane
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return errs
+
+
+def dma_sizes(rehearse: bool) -> dict:
+    """The knobs of the dma phase's harnesses: their defaults on the card,
+    tiny ones in a rehearsal."""
+    if not rehearse:
+        return {"dma": {}, "row_kernels": {}, "dedup_variants": {}}
+    return {"dma": dict(rows=4096, desc=256, iters=1, repeat=1),
+            "row_kernels": dict(rows=4096, n=256, steps=1),
+            "dedup_variants": dict(n=4096, ucap=4096, steps=1)}
+
+
+def dma_phase(args, dev, card: str) -> dict:
+    """The dma phase (module docstring): the checks, then the three
+    harnesses with every counter set to 0 just before them. Returns their
+    launches and results and the checks' errors."""
+    from meepoembedding_tpu_torch.bench import dedup_variants, dma, row_kernels
+
+    rehearse = dev.type == "cpu"
+    earlier = dma_launches()
+    if any(earlier.values()):
+        raise AssertionError(f"K6 / K7 launched before the dma phase: {earlier}")
+    gc.collect()
+    if not rehearse:
+        torch.cuda.empty_cache()
+    nrow, n = (4096, 256) if rehearse else (1 << 22, 1 << 16)  # bench_dma.py's plane and calls
+    t0 = time.perf_counter()
+    errs = check_dma_kernels(args.seed, dev, nrow, n)
+    log(f"dma: checks passed in {time.perf_counter() - t0:.1f} s")
+
+    sizes = dma_sizes(rehearse)
+    reset_launches()
+    for k in DMA_KERNELS:
+        k.launches = 0
+    results = {}
+    t0 = time.perf_counter()
+    for name, mod in (("dma", dma), ("row_kernels", row_kernels),
+                      ("dedup_variants", dedup_variants)):
+        err, held = io.StringIO(), []
+        before = {**launches(), **dma_launches()}
+        try:
+            with contextlib.redirect_stderr(err), held_kernels(held):
+                results[name] = mod.run(device=dev, **sizes[name])
+        finally:
+            for line in err.getvalue().splitlines():
+                log(f"dma {name} | {line}")
+        log(f"dma {name}: {held_summary(held)}")
+        ran = {k: v - before[k] for k, v in {**launches(), **dma_launches()}.items()
+               if v > before[k]}
+        if ran and not held:
+            raise AssertionError(f"dma {name} launched {ran} and no kernel call was held")
+        log(f"dma {name}: {json.dumps(results[name])}")
+    counts = {**launches(), **dma_launches()}
+    log(f"dma: path finished in {time.perf_counter() - t0:.1f} s; launches {counts} on {card}")
+    if list(results["dma"]) != DMA_KEYS:
+        raise AssertionError(f"bench.dma printed keys {list(results['dma'])}, not {DMA_KEYS}")
+    res = results["dma"]
+    if len(res["w_effective"]) != 14 or (not rehearse and not all(res["blocks_per_sm"].values())):
+        raise AssertionError(f"bench.dma: w_effective {res['w_effective']}, blocks_per_sm "
+                             f"{res['blocks_per_sm']}")
+    if not rehearse:
+        for k in ("row_block_gather", "row_block_scatter", "row_gather", "row_scatter_add",
+                  "row_scatter_set"):
+            if counts[k] <= 0:
+                raise AssertionError(f"the dma path never launched {k}")
+    return {"counts": counts, "earlier": earlier, "errs": errs, "nrow": nrow, "n": n}
+
+
+def time_dma_kernels(res: dict) -> dict:
+    """K6 and K7 at every point of the sweeps on bench_dma.py's stream (8
+    index sets of 2^16 distinct rows of a [2^22, 128] f32 plane, as
+    bench.dma makes them): kernel, plain and (at R = 1, where one call
+    computes the same rows: index_select, index_put_) library times
+    (`time_ms`; 5 x 24 calls at the main point, 3 x 8 elsewhere), the bytes
+    bound (2 n R 512 + 4 n bytes at 3.35 TB/s), and at the main point the
+    profiler's device time and the host time of a call. {kernel name:
+    [records, the main point first]}."""
+    from meepoembedding_tpu_torch.bench import dma
+    from meepoembedding_tpu_torch.kernels.row_block_copy import max_ring
+
+    dev = torch.device("cuda")
+    nrow, n = res["nrow"], res["n"]
+    plane = torch.full((nrow, LANES), 0.5, device=dev)
+    idxs = [s[0] for s in dma.index_sets(nrow, n, 8, 1, dev)]
+    g = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for name, (rs, ws) in dma_sweeps().items():
+        gather = name == "row_block_gather"
+        pts = sorted(((R, W) for R in rs for W in ws), key=lambda p: p != DMA_MAIN)
+        out[name] = []
+        for R, W in pts:
+            w = min(W, max_ring(R))
+            if gather:
+                kern = [lambda i=i, R=R, w=w: row_block_gather(plane, i, R, w) for i in idxs]
+                plain = [lambda i=i, R=R: row_block_gather_plain(plane, i, R) for i in idxs]
+                lib = [lambda i=i: torch.index_select(plane, 0, i) for i in idxs]
+            else:
+                upd = torch.randn((n * R, LANES), device=dev, generator=g)
+                kern = [lambda i=i, R=R, w=w, u=upd: row_block_scatter(plane, i, u, R, w)
+                        for i in idxs]
+                plain = [lambda i=i, R=R, u=upd: row_block_scatter_plain(plane, i, u, R)
+                         for i in idxs]
+                lib = [lambda i=i, u=upd: plane.index_put_((i,), u) for i in idxs]
+            main = (R, W) == DMA_MAIN
+            depth = () if main else (3, 8)
+            bound_ms = (2 * n * R * 512 + 4 * n) / HBM_BYTES_PER_S * 1e3
+            e = {"label": f"{'gather' if gather else 'scatter'}_R{R}_W{W}",
+                 "shape": f"[{nrow}, 128] f32, n={n}, R={R}, W={w}"
+                          + (f" (asked {W})" if w != W else ""),
+                 "ms": time_ms(kern, *depth), "device_ms": None, "kernel_ms": None,
+                 "plain_ms": time_ms(plain, *depth),
+                 "library_ms": time_ms(lib, *depth) if R == 1 else None,
+                 "bound_ms": bound_ms, "max_abs_err": res["errs"][(name, R, W)]}
+            if main:
+                for k, ms in zip(("device_ms", "kernel_ms"), device_ms(kern, "row_block_copy")):
+                    e[k] = ms if ms is None or ms >= bound_ms else None
+                e["host_us"] = host_time(name, kern[0])
+            out[name].append(e)
+            log(f"timing {name} [{e['label']}] {e['shape']}: kernel {e['ms']:.4f} ms (device "
+                f"{fmt_ms(e['device_ms'])}, {fmt_ms(e['kernel_ms'])} in the kernel), plain "
+                f"{e['plain_ms']:.4f} ms, library {fmt_ms(e['library_ms'])}, bound "
+                f"{bound_ms:.4f} ms (bytes); max |kernel - plain| {e['max_abs_err']}")
+            if not gather:
+                del upd
+    del plane
+    torch.cuda.empty_cache()
+    return out
 
 
 # --- main ----------------------------------------------------------------------
@@ -4866,6 +5136,7 @@ def run_phases(args) -> int:
         sharded_http_phase(args, res["http_single"], cpu, card)
         entry_phase(args, cpu, card)
         harness_phase(args, cpu, card)
+        dma_phase(args, cpu, card)
         log(f"rehearsal finished in {time.perf_counter() - t_start:.1f} s")
         return 1
 
@@ -5079,6 +5350,14 @@ def run_phases(args) -> int:
     phase_counts["harness"] = harness_phase(args, cuda, card)
     log(f"harness: phase finished in {time.perf_counter() - t0:.1f} s; launches "
         f"{phase_counts['harness']} on {card}")
+
+    # the DMA probe's kernels and harnesses, every counter set to 0 just
+    # before its harnesses (after the checks)
+    t0 = time.perf_counter()
+    dma_res = dma_phase(args, cuda, card)
+    dma_counts = dma_res["counts"]
+    dma_timings = time_dma_kernels(dma_res)
+    log(f"dma: phase finished in {time.perf_counter() - t0:.1f} s")
     meta = {
         "row_gather": ("meepoembedding_tpu_torch/csrc/row_gather.cu",
                        "meepoembedding_tpu/table/pallas_ops.py:58"),
@@ -5103,10 +5382,30 @@ def run_phases(args) -> int:
             "launches_int8": int8_counts[name], "launches_sharded": sharded_counts[name],
             "launches_cli": cli_counts[name],
             **{f"launches_{p}": c[name] for p, c in phase_counts.items()},
+            "launches_dma": dma_counts[name],
             "max_abs_err": max(t["max_abs_err"] for t in mine), "ms": e["ms"],
             "device_ms": e["device_ms"], "kernel_ms": e["kernel_ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": "bytes",
             "library_ms": e["library_ms"], "shape": e["shape"],
+            "shapes": [{k: t[k] for k in keys if k in t} for t in mine],
+        })
+    # K6 and K7: nothing launched them before the dma phase (their counters,
+    # never set to 0 before it, read 0 there), so each earlier phase's count is 0
+    earlier = ("train", "serve", "lifecycle", "zoo", "int8", "sharded", "cli", *phase_counts)
+    for name, replaces in (("row_block_gather", "bench_dma.py:76"),
+                           ("row_block_scatter", "bench_dma.py:137")):
+        mine = dma_timings[name]
+        e = mine[0]  # R = 1, W = 32
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "meepoembedding_tpu_torch/csrc/row_block_copy.cu", "replaces": replaces,
+            "launches": dma_counts[name],
+            **{f"launches_{p}": dma_res["earlier"][name] for p in earlier},
+            "launches_dma": dma_counts[name],
+            "max_abs_err": max(t["max_abs_err"] for t in mine), "ms": e["ms"],
+            "device_ms": e["device_ms"], "kernel_ms": e["kernel_ms"],
+            "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": "bytes",
+            "library_ms": e["library_ms"], "host_us": e["host_us"], "shape": e["shape"],
             "shapes": [{k: t[k] for k in keys if k in t} for t in mine],
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")

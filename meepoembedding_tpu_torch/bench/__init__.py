@@ -15,6 +15,11 @@ in-process as `run(device=..., **knobs) -> dict`:
   sharded_overhead  bench_sharded_overhead.py: ShardedTrainer at S = 1
                     against the single-device step
   scaling           bench_scaling.py: weak scaling, one process a rank
+  dma               bench_dma.py: one random copy of R rows, W in flight,
+                    gathering and scattering (K6, K7)
+  row_kernels       bench_pallas.py: the row kernels against the library
+                    calls, and the sorts
+  dedup_variants    bench_dedup_variants.py: dedup formulations
 
 `--device cuda` (the default) raises without a card.
 """

@@ -13,6 +13,8 @@ nothing of the JAX package.
   train_cycle    dedup -> lookup_train -> rows -> segment sum -> update
   timed_windows  best-of-W windows, a host read of step i - d the barrier
   world          the process group's mesh, or a world of one
+  timed          seconds of a call: CUDA events on a card, the host clock
+                 on the CPU
 
 Every number a harness prints is the device's own: `start` refuses a card
 that is not there (`resolve_device`), and nothing falls back to the CPU.
@@ -91,6 +93,22 @@ def device_kind(dev: torch.device) -> str:
 def sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def timed(dev: torch.device, fn: Callable[[], object]) -> float:
+    """Seconds that `fn()` takes: CUDA events around it on a card (the
+    device's time for the work it enqueues, or its enqueue where that is
+    longer), the host clock on the CPU."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / 1e3
 
 
 def require(ok: bool, msg: str) -> None:

@@ -7,9 +7,17 @@ kernel to the plain version. Each kernel source counts its launches in a
 plain integer attribute of its main wrapper, `<wrapper>.launches`
 (`segment_sum` counts its two kernels in `row_merge_add.launches`,
 `row_scatter_set_multi` in `row_scatter_set.launches`, `row_gather_multi`
-in `row_gather.launches`).
+in `row_gather.launches`). `row_block_copy` holds the random-row block
+gather and scatter of the DMA probe (`row_block_gather.launches`,
+`row_block_scatter.launches`).
 """
 
+from meepoembedding_tpu_torch.kernels.row_block_copy import (  # noqa: F401
+    row_block_gather,
+    row_block_gather_plain,
+    row_block_scatter,
+    row_block_scatter_plain,
+)
 from meepoembedding_tpu_torch.kernels.row_gather import (  # noqa: F401
     row_gather,
     row_gather_multi,

@@ -583,3 +583,105 @@ def test_headline_harness_on_card(capsys):
     # 1 warm-up + 3 windows of 2 steps of each of the three arms
     for k in (row_gather, row_scatter_add, row_merge_add):
         assert k.launches - before[k.__name__] >= 7, k.__name__
+
+
+# --- K6 / K7: the DMA probe's random-row block copies -----------------------------
+
+DMA_GATHER = ((1, 2, 4, 8, 16, 32), (8, 32, 128, 256))  # bench_dma.py's sweep
+DMA_SCATTER = ((1, 4, 16), (32, 256))
+
+
+def _dma_bases(nrow: int, n: int, R: int, g, dev) -> torch.Tensor:
+    """n random bases with the clip edge at the front: below 0, at and
+    above nrow - R, the int32 extremes."""
+    base = torch.randint(0, nrow, (n,), device=dev, dtype=torch.int32, generator=g)
+    edge = [-(2**31), -1, 0, nrow - R, nrow - 1, nrow, 2**31 - 1, *range(nrow - R, nrow)]
+    base[:len(edge)] = torch.tensor(edge, dtype=torch.int32, device=dev)
+    return base
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", DMA_GATHER[0])
+def test_row_block_gather_matches_plain(R):
+    """Every W of the sweep (capped to the ring that fits) gives the plain
+    version's bits, over a ragged last block and the clip edge."""
+    from meepoembedding_tpu_torch.kernels import row_block_copy as rbc
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(R)
+    nrow, n = 1 << 20, 4096 + 77
+    plane = torch.randn((nrow, 128), device=dev, generator=g)
+    base = _dma_bases(nrow, n, R, g, dev)
+    want = rbc.row_block_gather_plain(plane, base, R)
+    before = rbc.row_block_gather.launches
+    for W in DMA_GATHER[1]:
+        w = min(W, rbc.max_ring(R))
+        got = rbc.row_block_gather(plane, base, R, w)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want)), (R, W, w)
+        assert rbc.occupancy(R, w) >= 1
+    assert rbc.row_block_gather.launches == before + len(DMA_GATHER[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", DMA_SCATTER[0])
+def test_row_block_scatter_matches_plain(R):
+    """Disjoint blocks (distinct multiples of 16, the top one included) of
+    random rows: every W of the sweep, capped, gives the plain version's
+    bits, and the same bits as each other."""
+    from meepoembedding_tpu_torch.kernels import row_block_copy as rbc
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(100 + R)
+    nrow, n = 1 << 20, 4096 + 77
+    plane = torch.randn((nrow, 128), device=dev, generator=g)
+    base = (torch.randperm(nrow // 16, device=dev, generator=g)[:n] * 16).int()
+    base[0] = nrow - 16
+    upd = torch.randn((n * R, 128), device=dev, generator=g)
+    want = rbc.row_block_scatter_plain(plane.clone(), base, upd, R)
+    for W in DMA_SCATTER[1]:
+        got = rbc.row_block_scatter(plane.clone(), base, upd, R, min(W, rbc.max_ring(R)))
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want)), (R, W)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", (1, 2, 3, 5, 17, 100, 255))
+def test_row_block_copy_any_ring(W):
+    """Rings outside the sweep, dealt out unevenly over the eight issuing
+    lanes of a block (W < 8: W lanes): the plain version's bits, the gather
+    over the clip edge, the scatter on disjoint blocks."""
+    from meepoembedding_tpu_torch.kernels import row_block_copy as rbc
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(200 + W)
+    nrow, n, R = 1 << 16, 1024 + 33, 1
+    plane = torch.randn((nrow, 128), device=dev, generator=g)
+    base = _dma_bases(nrow, n, R, g, dev)
+    got = rbc.row_block_gather(plane, base, R, W)
+    assert torch.equal(_bits(got), _bits(rbc.row_block_gather_plain(plane, base, R)))
+    base = torch.randperm(nrow, device=dev, generator=g)[:n].int()
+    upd = torch.randn((n * R, 128), device=dev, generator=g)
+    got = rbc.row_block_scatter(plane.clone(), base, upd, R, W)
+    want = rbc.row_block_scatter_plain(plane.clone(), base, upd, R)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+def test_row_block_copy_refuses_on_card():
+    from meepoembedding_tpu_torch.kernels import row_block_copy as rbc
+
+    dev = _cuda()
+    plane = torch.zeros((1024, 128), device=dev)
+    base = torch.zeros((8,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        rbc.row_block_gather(plane, base, 32, 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        rbc.occupancy(16, 256)
+    with pytest.raises(ValueError, match="one device"):
+        rbc.row_block_gather(plane.cpu(), base, 1, 8)
+    with pytest.raises(ValueError, match="one device"):
+        rbc.row_block_scatter(plane, base, torch.zeros((8, 128)), 1, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        rbc.row_block_gather(plane.view(-1)[1:1 + 512 * 128].view(512, 128), base, 1, 8)

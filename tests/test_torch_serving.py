@@ -176,7 +176,9 @@ def test_chip_smoke_rehearses_on_cpu():
     commands, serve and eval of the serve checkpoint), the sharded_http
     phase (one HTTP front over two rank processes), the entry phase and
     the harness phase (every `bench/` harness, and the headline's `python
-    -m`) at a tiny size with the plain versions. It must exit non-zero and print no
+    -m`) and the dma phase (K6 and K7 against their plain versions at every
+    point of bench_dma.py's sweeps, the DMA probe and its two sibling
+    harnesses) at a tiny size with the plain versions. It must exit non-zero and print no
     result line: a CPU run is no chip run."""
     out = subprocess.run(
         [sys.executable, "chip_smoke.py", "--rehearse-on-cpu", "--capacity", str(1 << 14),
@@ -215,6 +217,14 @@ def test_chip_smoke_rehearses_on_cpu():
     assert "the stop op ended both ranks with 0" in out.stdout
     assert "/retrieve over 4096 items equals the single-device keys" in out.stdout
     assert "entry: forward of 256 x 8 ids" in out.stdout and "dryrun_multichip(1) passed" in out.stdout
+    assert "check row_block_scatter R=16, W in [32, 256] (run at [28, 28])" in out.stdout
+    assert "a ring that does not fit is refused" in out.stdout
+    for name in ("dma", "row_kernels", "dedup_variants"):
+        assert f"dma {name}: {{" in out.stdout, name
+    # bench.dma's 23 distinct (R, W run) of its 30 points and its row_gather, each held once
+    assert "dma dma: 24 calls held against the plain versions" in out.stdout
+    assert "row_block_scatter R=16 W=28" in out.stdout
+    assert "dma row_kernels: 3 calls held against the plain versions" in out.stdout
     assert "rehearsal finished" in out.stdout
     assert '"ok": true' not in out.stdout
     assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke"))
@@ -232,6 +242,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "assert 'meepoembedding_tpu_torch.entry' in sys.modules\n"
         "assert 'meepoembedding_tpu_torch.bench.headline' in sys.modules\n"
+        "assert 'meepoembedding_tpu_torch.bench.dma' in sys.modules\n"
+        "assert 'meepoembedding_tpu_torch.table.oracle' in sys.modules\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
