@@ -143,8 +143,9 @@ Phases (any failure exits non-zero and prints no result line):
            than 1 row_scatter_set, 1 row_scatter_add (the accumulator's
            fetch-add) and 3 row_merge_add launches a step (the values
            update; the segment sum's walk and combine pass), or other than
-           4 row_gather a step plus 1 a planning round (counted by
-           `plan_insert.rounds`; so no gather of the accumulator), or, in an
+           4 row_gather a step plus 1 a planning round (counted by the
+           `meepo.table.plan_round` spans entered; so no gather of the
+           accumulator), or, in an
            assign batch, other than 3 row_scatter_set launches. Then
            torch.profiler over 4 steps.
   timing   each kernel with CUDA events on the live table's planes, at the
@@ -412,6 +413,7 @@ a result: a dry run of the control flow on machines without a card.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -443,6 +445,7 @@ from meepoembedding_tpu_torch import (
     cli,
     embed,
     make_http_server,
+    tracing,
 )
 from meepoembedding_tpu_torch import checkpoint as ckpt_io
 from meepoembedding_tpu_torch.backends import HostKVStore
@@ -1008,10 +1011,26 @@ def dma_launches() -> dict:
     return {k.__name__: k.launches for k in DMA_KERNELS}
 
 
+SPANS = collections.Counter()
+
+
+def counted_span(name: str):
+    """`tracing.span` that also counts the spans entered, by name. Installed
+    as `table_ops.span`, it counts each insert-planning round where it runs
+    (`meepo.table.plan_round`), with no profiler running."""
+    SPANS[name] += 1
+    return tracing.span(name)
+
+
+def plan_rounds() -> int:
+    """Insert-planning rounds since the last `reset_launches()`."""
+    return SPANS["meepo.table.plan_round"]
+
+
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
-    table_ops.plan_insert.rounds = 0
+    SPANS.clear()
 
 
 def delta(before: dict, calls: int) -> str:
@@ -2005,13 +2024,13 @@ def lifecycle_live(args, table, assigned, dev, card: str) -> dict:
     step_ms, pass_ms, evicted, last_ids = [], [], 0, None
     on_card = dev.type == "cuda"
     for i, b in enumerate(stream.batches(LIFE_STEPS)):
-        at, r0 = launches(), table_ops.plan_insert.rounds
+        at, r0 = launches(), plan_rounds()
         t0 = time.perf_counter()
         loss = tr.train_step(b)["loss"]
         step_ms.append((time.perf_counter() - t0) * 1e3)
         if not np.isfinite(loss):
             raise AssertionError(f"lifecycle step {i}: loss {loss}")
-        d, rounds = _launch_delta(at), table_ops.plan_insert.rounds - r0
+        d, rounds = _launch_delta(at), plan_rounds() - r0
         # LFU/TTL keeps scores: touch adds freq (a K3 add) and sets last (a set)
         want = {"row_gather": 4 + rounds, "row_scatter_set": 2, "row_scatter_add": 2,
                 "row_merge_add": 3}
@@ -2326,7 +2345,7 @@ def run_steps(name: str, step, batches, dev, card: str, want=None) -> dict:
     on the card, unless each step launches exactly `want` (row_gather: plus
     1 a planning round). Returns the timings and the launches a step."""
     warm = 1 if dev.type == "cpu" else 5
-    at, rounds0 = launches(), table_ops.plan_insert.rounds
+    at, rounds0 = launches(), plan_rounds()
     losses, lat = [], []
     for i, b in enumerate(batches):
         t0 = time.perf_counter()
@@ -2337,7 +2356,7 @@ def run_steps(name: str, step, batches, dev, card: str, want=None) -> dict:
             raise AssertionError(f"{name} step {i}: loss {loss}")
     sync(dev)
     steps = len(batches)
-    rounds = table_ops.plan_insert.rounds - rounds0
+    rounds = plan_rounds() - rounds0
     per = {k: v / steps for k, v in _launch_delta(at).items()}
     lat = np.asarray(lat[warm:])
     shape = batches[0]["ids"].shape
@@ -4305,7 +4324,7 @@ def harness_phase(args, dev, card: str) -> dict:
                 for line in err.getvalue().splitlines():
                     log(f"harness {name} | {line}")
             secs = time.perf_counter() - t0
-            counts, rounds = launches(), table_ops.plan_insert.rounds
+            counts, rounds = launches(), plan_rounds()
             if name == "scaling":  # its ranks are processes of their own
                 counts = json.loads(re.search(r"^S=1: rank 0 launches (.*)$", err.getvalue(),
                                               re.M).group(1))
@@ -4672,7 +4691,7 @@ def zoo_train(kind: str, table, batches, dev, card: str, seed: int) -> dict:
     warm, nsteps = (1, 2) if dev.type == "cpu" else (5, TRAIN_STEPS)
     tr = Trainer(RunConfig(steps=warm + nsteps, seed=seed), table.cfg, mc, device=dev,
                  generator=torch.Generator().manual_seed(seed), shard=table.shard)
-    before, at, rounds0 = tr.counters(), launches(), table_ops.plan_insert.rounds
+    before, at, rounds0 = tr.counters(), launches(), plan_rounds()
     losses, lat, shape, held = [], [], None, []
     for i in range(warm + nsteps):
         b = next(batches)
@@ -4690,7 +4709,7 @@ def zoo_train(kind: str, table, batches, dev, card: str, seed: int) -> dict:
     diff = {k: after[k] - before[k] for k in ("hits", "inserts", "drops")}
     now = launches()
     per = {k: (now[k] - at[k]) / steps for k in now}
-    rounds = table_ops.plan_insert.rounds - rounds0
+    rounds = plan_rounds() - rounds0
     lat = np.asarray(lat[warm:])
     bsz, ids_per_step = shape[0], int(np.prod(shape))
     log(f"zoo {kind}: {warm} warm-up + {nsteps} timed steps of {' x '.join(map(str, shape))} "
@@ -4812,7 +4831,7 @@ def cli_call(argv: list, dev, expect_rc: int = 0) -> dict:
     lines, stderr, seconds, and the kernel launches and insert-planning
     rounds it made. Fails unless it exits with `expect_rc`."""
     out, err = io.StringIO(), io.StringIO()
-    at, rounds = launches(), table_ops.plan_insert.rounds
+    at, rounds = launches(), plan_rounds()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main([*argv, "--device", dev.type])
@@ -4830,7 +4849,7 @@ def cli_call(argv: list, dev, expect_rc: int = 0) -> dict:
                       if x.startswith("{") and x.endswith("}")],
             "out": text, "err": err.getvalue(), "s": secs,
             "launches": {k: now[k] - at[k] for k in now},
-            "rounds": table_ops.plan_insert.rounds - rounds}
+            "rounds": plan_rounds() - rounds}
 
 
 def hold_launches(what: str, res: dict, want: dict, dev) -> None:
@@ -5088,6 +5107,7 @@ def cli_serve_phase(args, res, dev, card: str) -> dict:
 
 def main() -> int:
     args = parse_args()
+    table_ops.span = counted_span  # in every process: the rank processes count rounds too
     if args.col_rank is not None:
         return col_rank_main(args)
     if args.front_rank is not None:
@@ -5246,7 +5266,7 @@ def run_phases(args) -> int:
                                  f"{train_counts[name] / steps:.2f} times, not {want}")
     # gathers: the probe's 2 round groups, the values read and the rows by
     # the inverse, plus one a planning round; none of the accumulator
-    rounds = table_ops.plan_insert.rounds
+    rounds = plan_rounds()
     max_rounds = tres["trainer"].spec.max_probe_rounds
     log(f"train: row_gather {train_counts['row_gather'] / steps:.2f} a step, insert planning "
         f"{rounds / steps:.2f} rounds a step")

@@ -31,6 +31,7 @@ import torch
 
 from meepoembedding_tpu_torch.kernels import row_gather, segment_sum
 from meepoembedding_tpu_torch.table import hashing
+from meepoembedding_tpu_torch.tracing import span
 
 
 class Unique(NamedTuple):
@@ -66,37 +67,38 @@ def unique_pairs(hi: torch.Tensor, lo: torch.Tensor, size: int,
     of `inverse` (with `owner_major` too: equal ids share an owner). With
     overflow the aliased ids share the last run in id order, not in input
     order: still a fixed order."""
-    n = hi.shape[0]
-    key = _sort_key(hi, lo)
-    _, order = torch.sort(key, stable=True)
-    if owner_major:
-        ow = hashing.owner_of(hi, lo, owner_major)
-        ow = torch.where(hashing.is_valid(hi, lo), ow, torch.full_like(ow, owner_major))
-        _, o2 = torch.sort(ow[order], stable=True)
-        order = order[o2]
-    skey, sh, sl = key[order], hi[order], lo[order]
-    is_new = torch.ones((n,), dtype=torch.bool, device=hi.device)
-    # runs are split by the id key alone (not the owner), as in the reference
-    is_new[1:] = skey[1:] != skey[:-1]
-    gid0 = torch.cumsum(is_new, 0, dtype=torch.int32) - 1
-    num_runs = gid0[-1] + 1
-    gid = gid0.clamp(max=size - 1)
-    inverse = torch.empty((n,), dtype=torch.int32, device=hi.device)
-    inverse[order] = gid
-    # compact the run starts (already in id order) into positions gid0; the
-    # non-starts all land in the spare slot `width`, which is discarded
-    width = max(n, size)
-    dest = torch.where(is_new, gid0.long(), torch.full_like(gid0, width, dtype=torch.int64))
-    ch = torch.full((width + 1,), hashing.EMPTY_HI, dtype=torch.int32, device=hi.device)
-    cl = torch.full((width + 1,), hashing.EMPTY_LO, dtype=torch.int32, device=hi.device)
-    ch.scatter_(0, dest, sh)
-    cl.scatter_(0, dest, sl)
-    keep = torch.arange(size, device=hi.device) < num_runs
-    uh = torch.where(keep, ch[:size], hashing.EMPTY_HI)
-    ul = torch.where(keep, cl[:size], hashing.EMPTY_LO)
-    valid = hashing.is_valid(uh, ul)
-    return Unique(hi=uh, lo=ul, inverse=inverse, valid=valid,
-                  count=valid.sum().to(torch.int32), order=order, sorted_ids=gid)
+    with span("meepo.table.dedup"):
+        n = hi.shape[0]
+        key = _sort_key(hi, lo)
+        _, order = torch.sort(key, stable=True)
+        if owner_major:
+            ow = hashing.owner_of(hi, lo, owner_major)
+            ow = torch.where(hashing.is_valid(hi, lo), ow, torch.full_like(ow, owner_major))
+            _, o2 = torch.sort(ow[order], stable=True)
+            order = order[o2]
+        skey, sh, sl = key[order], hi[order], lo[order]
+        is_new = torch.ones((n,), dtype=torch.bool, device=hi.device)
+        # runs are split by the id key alone (not the owner), as in the reference
+        is_new[1:] = skey[1:] != skey[:-1]
+        gid0 = torch.cumsum(is_new, 0, dtype=torch.int32) - 1
+        num_runs = gid0[-1] + 1
+        gid = gid0.clamp(max=size - 1)
+        inverse = torch.empty((n,), dtype=torch.int32, device=hi.device)
+        inverse[order] = gid
+        # compact the run starts (already in id order) into positions gid0; the
+        # non-starts all land in the spare slot `width`, which is discarded
+        width = max(n, size)
+        dest = torch.where(is_new, gid0.long(), torch.full_like(gid0, width, dtype=torch.int64))
+        ch = torch.full((width + 1,), hashing.EMPTY_HI, dtype=torch.int32, device=hi.device)
+        cl = torch.full((width + 1,), hashing.EMPTY_LO, dtype=torch.int32, device=hi.device)
+        ch.scatter_(0, dest, sh)
+        cl.scatter_(0, dest, sl)
+        keep = torch.arange(size, device=hi.device) < num_runs
+        uh = torch.where(keep, ch[:size], hashing.EMPTY_HI)
+        ul = torch.where(keep, cl[:size], hashing.EMPTY_LO)
+        valid = hashing.is_valid(uh, ul)
+        return Unique(hi=uh, lo=ul, inverse=inverse, valid=valid,
+                      count=valid.sum().to(torch.int32), order=order, sorted_ids=gid)
 
 
 def segment_sum_grads(grads: torch.Tensor, inverse: torch.Tensor, num_unique: int,
@@ -122,9 +124,12 @@ class GatherRows(torch.autograd.Function):
                 sorted_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         ctx.save_for_backward(inverse, *(() if order is None else (order, sorted_ids)))
         ctx.num_unique = rows_u.shape[0]
-        return row_gather(rows_u.contiguous(), inverse)
+        with span("meepo.table.gather"):
+            return row_gather(rows_u.contiguous(), inverse)
 
     @staticmethod
     def backward(ctx, grad_out: torch.Tensor):
         inverse, *sort = ctx.saved_tensors
-        return segment_sum_grads(grad_out, inverse, ctx.num_unique, *sort), None, None, None
+        with span("meepo.table.segment_sum"):
+            g = segment_sum_grads(grad_out, inverse, ctx.num_unique, *sort)
+        return g, None, None, None

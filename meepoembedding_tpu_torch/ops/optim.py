@@ -35,6 +35,7 @@ from meepoembedding_tpu_torch.table.table_ops import (
     gather_values_multi,
     scatter_add_values,
 )
+from meepoembedding_tpu_torch.tracing import span
 
 
 def apply_sparse_grads_ctx(spec: TableSpec, shard: TableShard, ctx, grad: torch.Tensor,
@@ -50,27 +51,28 @@ def apply_sparse_grads_ctx(spec: TableSpec, shard: TableShard, ctx, grad: torch.
     accumulator's increment (default: / spec.dim). A column block passes
     an all-reduce over its column group divided by the full row's dim, so
     the accumulator stays a full-row statistic, the same on every column."""
-    opt = spec.optimizer
-    slot, fresh = ctx.slot, ctx.fresh
-    enabled = slot >= 0
-    grad = torch.where(enabled[:, None], grad.float(), 0.0)
-    init_add = torch.where(fresh[:, None], ctx.rows_u, 0.0)
-    if opt.kind == "sgd":
-        scatter_add_values(shard.values, slot, init_add - opt.learning_rate * grad, enabled)
-        return
-    if opt.kind == "rowwise_adagrad":
-        (accum,) = shard.opt_rowwise
-        g2 = (grad * grad).sum(dim=1)
-        g2 = g2 / spec.dim if g2_mean is None else g2_mean(g2)
-        acc_add = g2 + torch.where(fresh, opt.initial_accumulator, 0.0)
-        # fresh slots hold 0 before the add
-        a_new = fetch_add_bucket_plane(accum, slot, acc_add, enabled) + acc_add
-        scale = opt.learning_rate * torch.rsqrt(a_new + opt.eps)
-        scatter_add_values(shard.values, slot, init_add - scale[:, None] * grad, enabled)
-        return
-    # the other kinds keep only full-dim state, zero on fresh slots
-    scatter_add_values(shard.values, slot, ctx.rows_u, fresh)
-    apply_sparse_grads(spec, shard, slot, grad)
+    with span("meepo.table.update"):
+        opt = spec.optimizer
+        slot, fresh = ctx.slot, ctx.fresh
+        enabled = slot >= 0
+        grad = torch.where(enabled[:, None], grad.float(), 0.0)
+        init_add = torch.where(fresh[:, None], ctx.rows_u, 0.0)
+        if opt.kind == "sgd":
+            scatter_add_values(shard.values, slot, init_add - opt.learning_rate * grad, enabled)
+            return
+        if opt.kind == "rowwise_adagrad":
+            (accum,) = shard.opt_rowwise
+            g2 = (grad * grad).sum(dim=1)
+            g2 = g2 / spec.dim if g2_mean is None else g2_mean(g2)
+            acc_add = g2 + torch.where(fresh, opt.initial_accumulator, 0.0)
+            # fresh slots hold 0 before the add
+            a_new = fetch_add_bucket_plane(accum, slot, acc_add, enabled) + acc_add
+            scale = opt.learning_rate * torch.rsqrt(a_new + opt.eps)
+            scatter_add_values(shard.values, slot, init_add - scale[:, None] * grad, enabled)
+            return
+        # the other kinds keep only full-dim state, zero on fresh slots
+        scatter_add_values(shard.values, slot, ctx.rows_u, fresh)
+        apply_sparse_grads(spec, shard, slot, grad)
 
 
 def apply_sparse_grads(spec: TableSpec, shard: TableShard, slot: torch.Tensor,

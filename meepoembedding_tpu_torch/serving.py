@@ -35,6 +35,7 @@ from meepoembedding_tpu_torch.serving_quant import QuantizedTable
 from meepoembedding_tpu_torch.table import hashing
 from meepoembedding_tpu_torch.table.layout import resolve_device
 from meepoembedding_tpu_torch.table.runtime import DynamicEmbeddingTable
+from meepoembedding_tpu_torch.tracing import span
 from meepoembedding_tpu_torch.weights import from_jax_params
 
 
@@ -78,24 +79,33 @@ class ScoringService:
 
     def score(self, dense, ids) -> np.ndarray:
         """[B, ND] f32 + [B, S] or [B, S, L] int64 -> [B] probabilities."""
-        ids = np.asarray(ids, np.int64)
-        t0 = time.perf_counter()
-        with self._lock, torch.no_grad():
-            ids_t = torch.from_numpy(ids).to(self.device)
-            dense_t = torch.from_numpy(np.asarray(dense, np.float32)).to(self.device)
-            rows = self.table.lookup(ids_t.reshape(-1), train=False)
-            bag_valid = None
-            if ids.ndim == 3:
-                bag_valid = hashing.is_valid(*hashing.split_ids_t(ids_t))
-            emb = model_inputs(self.model, rows, ids.shape, bag_valid,
-                               self.table_cfg.dim, self.model_cfg.combiner)
-            p = torch.sigmoid(model_apply(self.model, dense_t, emb, bag_valid))
-            out = p.cpu().numpy()
-            self._requests += 1
-            self._lat_ms.append((time.perf_counter() - t0) * 1e3)
-            if len(self._lat_ms) > 1024:
-                del self._lat_ms[:512]
-            return out
+        with span("meepo.serve.request"):
+            ids = np.asarray(ids, np.int64)
+            t0 = time.perf_counter()
+            with span("meepo.serve.queue"):
+                self._lock.acquire()
+            try:
+                with torch.no_grad():
+                    with span("meepo.serve.inputs"):
+                        ids_t = torch.from_numpy(ids).to(self.device)
+                        dense_t = torch.from_numpy(np.asarray(dense, np.float32)).to(self.device)
+                    rows = self.table.lookup(ids_t.reshape(-1), train=False)
+                    bag_valid = None
+                    if ids.ndim == 3:
+                        bag_valid = hashing.is_valid(*hashing.split_ids_t(ids_t))
+                    with span("meepo.tower.forward"):
+                        emb = model_inputs(self.model, rows, ids.shape, bag_valid,
+                                           self.table_cfg.dim, self.model_cfg.combiner)
+                        p = torch.sigmoid(model_apply(self.model, dense_t, emb, bag_valid))
+                    with span("meepo.serve.readback_sync"):
+                        out = p.cpu().numpy()
+                self._requests += 1
+                self._lat_ms.append((time.perf_counter() - t0) * 1e3)
+                if len(self._lat_ms) > 1024:
+                    del self._lat_ms[:512]
+                return out
+            finally:
+                self._lock.release()
 
     def reload(self, ckpt_path: str | None = None) -> dict:
         """Hot-swap to a (usually newer) checkpoint: the replacement table and

@@ -27,6 +27,7 @@ from meepoembedding_tpu_torch.table.layout import (
     load_factor,
     resolve_device,
 )
+from meepoembedding_tpu_torch.tracing import span
 
 REGROW_BATCH = 1 << 14  # rows a regrow insert batch: slot placement depends on it
 
@@ -159,8 +160,9 @@ class DynamicEmbeddingTable:
         if not train:
             uniq = dedup.unique_pairs(hi, lo, size=npad)
             pr = table_ops.probe(self.spec, self.shard, uniq.hi, uniq.lo, uniq.valid)
-            rows = table_ops.lookup_rows(self.shard, torch.where(pr.found, pr.slot, -1))
-            return row_gather(rows, uniq.inverse[:n])
+            with span("meepo.table.gather"):
+                rows = table_ops.lookup_rows(self.shard, torch.where(pr.found, pr.slot, -1))
+                return row_gather(rows, uniq.inverse[:n])
         self._maybe_grow(n)
         self._apply_promotions()
         spec, shard = self.spec, self.shard

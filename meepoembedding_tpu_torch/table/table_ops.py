@@ -59,6 +59,7 @@ from meepoembedding_tpu_torch.table.layout import (
     TableShard,
     TableSpec,
 )
+from meepoembedding_tpu_torch.tracing import span, spanned
 
 
 class ProbeResult(NamedTuple):
@@ -79,6 +80,7 @@ def _first_true(m: torch.Tensor) -> torch.Tensor:
     return torch.argmax(m.to(torch.uint8), dim=1).to(torch.int32)
 
 
+@spanned("meepo.table.probe")
 def probe(spec: TableSpec, shard: TableShard, uh, ul, valid) -> ProbeResult:
     """Find the slots of (deduped) keys in `max_probe_rounds` rounds of
     bucketized XOR probing (b0 ^ r). Rounds 2g and 2g+1 share one aligned
@@ -140,50 +142,52 @@ def _plan_insert_impl(spec: TableSpec, shard: TableShard, uh, ul, want):
     claimed = torch.zeros((nb + 1,), dtype=torch.int32, device=dev)
     ones = torch.ones((n,), dtype=torch.int32, device=dev)
     for r in range(min(spec.max_probe_rounds, nb)):
-        if not bool(pending.any()):
-            break  # the reference's untaken lax.cond: nothing changes any more
-        b = b0 ^ r
-        sort_key = torch.where(pending, b, nb)
-        order, rank_sorted = _segmented_rank(sort_key)
-        rank = torch.empty_like(rank_sorted)
-        rank[order] = rank_sorted
-        # the bucket's free lanes, in lane order, from the planes as they were
-        # before this call (the `claimed` tally accounts for this call's picks)
-        kh, kl = row_gather_multi((shard.key_hi, shard.key_lo), b)
-        plan_insert.rounds += 1
-        free = (kh == hashing.EMPTY_HI) & (kl == hashing.EMPTY_LO)
-        cum = torch.cumsum(free, dim=1, dtype=torch.int32)
-        num_free = cum[:, -1]
-        eff_rank = rank + claimed[b.long()]
-        islane = free & (cum == (eff_rank + 1).clamp(1, LANES)[:, None])
-        lane = _first_true(islane)
-        ok = pending & (eff_rank < num_free)
-        fail = pending & ~ok
-        slot = torch.where(ok, b * LANES + lane, slot)
-        at_ok = torch.where(ok, b, nb).long()
-        claimed.index_add_(0, at_ok, ones)
-        cnt.index_add_(0, at_ok, ones)
-        ovf.scatter_reduce_(0, torch.where(fail, b, nb).long(), ones, reduce="amax")
-        pending = fail
+        with span("meepo.table.plan_sync"):
+            if not bool(pending.any()):
+                break  # the reference's untaken lax.cond: nothing changes any more
+        with span("meepo.table.plan_round"):
+            b = b0 ^ r
+            sort_key = torch.where(pending, b, nb)
+            order, rank_sorted = _segmented_rank(sort_key)
+            rank = torch.empty_like(rank_sorted)
+            rank[order] = rank_sorted
+            # the bucket's free lanes, in lane order, from the planes as they
+            # were before this call (the `claimed` tally accounts for this
+            # call's picks)
+            kh, kl = row_gather_multi((shard.key_hi, shard.key_lo), b)
+            free = (kh == hashing.EMPTY_HI) & (kl == hashing.EMPTY_LO)
+            cum = torch.cumsum(free, dim=1, dtype=torch.int32)
+            num_free = cum[:, -1]
+            eff_rank = rank + claimed[b.long()]
+            islane = free & (cum == (eff_rank + 1).clamp(1, LANES)[:, None])
+            lane = _first_true(islane)
+            ok = pending & (eff_rank < num_free)
+            fail = pending & ~ok
+            slot = torch.where(ok, b * LANES + lane, slot)
+            at_ok = torch.where(ok, b, nb).long()
+            claimed.index_add_(0, at_ok, ones)
+            cnt.index_add_(0, at_ok, ones)
+            ovf.scatter_reduce_(0, torch.where(fail, b, nb).long(), ones, reduce="amax")
+            pending = fail
     return slot, cnt[:nb], ovf[:nb]
 
 
+@spanned("meepo.table.plan")
 def plan_insert(spec: TableSpec, shard: TableShard, uh, ul, want) -> InsertPlan:
     """Assign a free (bucket, lane) to each wanted key, collision-free within
     the batch: keys of one bucket take its free lanes in rank order, and a
     per-bucket `claimed` tally carries the picks across rounds.
 
     `spec.insert_cap` bounds the admitted inserts of one call: the first
-    `insert_cap` wanted keys are planned, the rest get slot -1.
-
-    `plan_insert.rounds` counts the rounds planned (each one gather of the
-    key planes), so that a run can tell its gathers apart."""
+    `insert_cap` wanted keys are planned, the rest get slot -1."""
     n = uh.shape[0]
     C = spec.insert_cap
     if C is None or C >= n:
         slot, cnt, ovf = _plan_insert_impl(spec, shard, uh, ul, want)
         return InsertPlan(slot=slot, ok=want & (slot >= 0), cnt=cnt, ovf=ovf)
-    if not bool(want.any()):
+    with span("meepo.table.plan_sync"):
+        none_wanted = not bool(want.any())
+    if none_wanted:
         slot = torch.full((n,), -1, dtype=torch.int32, device=uh.device)
         return InsertPlan(slot=slot, ok=want & (slot >= 0), cnt=shard.cnt.clone(),
                           ovf=shard.ovf.clone())
@@ -197,9 +201,6 @@ def plan_insert(spec: TableSpec, shard: TableShard, uh, ul, want) -> InsertPlan:
     slot = torch.full((n,), -1, dtype=torch.int32, device=uh.device)
     slot[cidx] = slot_c[: cidx.shape[0]]
     return InsertPlan(slot=slot, ok=want & (slot >= 0), cnt=cnt, ovf=ovf)
-
-
-plan_insert.rounds = 0
 
 
 def gather_values_multi(planes: Sequence[torch.Tensor], slot: torch.Tensor) -> list:
@@ -292,6 +293,7 @@ def touch(shard: TableShard, slot, enabled, step: int) -> None:
     scatter_bucket_planes(set_index(slot, enabled), [(shard.last, step)])
 
 
+@spanned("meepo.table.admit")
 def cms_admit(spec: TableSpec, cms: torch.Tensor, uh, ul, miss) -> torch.Tensor:
     """Count-min-sketch frequency admission: count each missed key in every
     hash row (in place), then admit it once its smallest count reaches
@@ -333,31 +335,34 @@ def lookup_train(spec: TableSpec, shard: TableShard, uh, ul, valid, step: int) -
     branches on whether any key is fresh: a launch whose indices are all -1
     writes nothing. With `policy.needs_scores`, found keys also get
     freq += 1 and last = step."""
-    pr = probe(spec, shard, uh, ul, valid)
-    miss = valid & ~pr.found
-    admit = cms_admit(spec, shard.cms, uh, ul, miss)
-    plan = plan_insert(spec, shard, uh, ul, admit)
-    slot = torch.where(pr.found, pr.slot, plan.slot)
-    fresh = plan.ok
+    with span("meepo.table.lookup"):
+        pr = probe(spec, shard, uh, ul, valid)
+        miss = valid & ~pr.found
+        admit = cms_admit(spec, shard.cms, uh, ul, miss)
+        plan = plan_insert(spec, shard, uh, ul, admit)
+        with span("meepo.table.fresh"):
+            slot = torch.where(pr.found, pr.slot, plan.slot)
+            fresh = plan.ok
 
-    rows = gather_values(shard.values, slot)
-    init = hashing.default_rows(uh, ul, spec.dim, spec.initializer_scale, spec.dtype,
-                                kind=spec.initializer, lane_offset=spec.init_lane_offset)
-    rows_u = torch.where(fresh[:, None], init, rows).float()
-    rows_u.masked_fill_((slot < 0)[:, None], 0.0)
+            rows = gather_values(shard.values, slot)
+            init = hashing.default_rows(uh, ul, spec.dim, spec.initializer_scale, spec.dtype,
+                                        kind=spec.initializer, lane_offset=spec.init_lane_offset)
+            rows_u = torch.where(fresh[:, None], init, rows).float()
+            rows_u.masked_fill_((slot < 0)[:, None], 0.0)
 
-    scatter_bucket_planes(set_index(slot, fresh), [
-        (shard.key_hi, uh), (shard.key_lo, ul), (shard.freq, 1), (shard.last, step)])
-    if spec.policy.needs_scores:
-        touch(shard, slot, pr.found, step)
+            scatter_bucket_planes(set_index(slot, fresh), [
+                (shard.key_hi, uh), (shard.key_lo, ul), (shard.freq, 1), (shard.last, step)])
+            if spec.policy.needs_scores:
+                touch(shard, slot, pr.found, step)
 
-    shard.cnt.copy_(plan.cnt)
-    shard.ovf.copy_(plan.ovf)
-    events = torch.stack([pr.found.sum(), miss.sum(), fresh.sum(), (admit & ~fresh).sum(),
-                          (miss & ~admit).sum()]).to(torch.int32)
-    at = torch.tensor([HITS, MISSES, INSERTS, DROPS, DENIED], device=events.device)
-    shard.counters.index_add_(0, at, events)
-    return LookupCtx(slot=slot, found=pr.found, fresh=fresh, rows_u=rows_u)
+            shard.cnt.copy_(plan.cnt)
+            shard.ovf.copy_(plan.ovf)
+            events = torch.stack([pr.found.sum(), miss.sum(), fresh.sum(), (admit & ~fresh).sum(),
+                                  (miss & ~admit).sum()]).to(torch.int32)
+            with span("meepo.table.counters_sync"):  # the index's copy waits on the stream
+                at = torch.tensor([HITS, MISSES, INSERTS, DROPS, DENIED], device=events.device)
+            shard.counters.index_add_(0, at, events)
+            return LookupCtx(slot=slot, found=pr.found, fresh=fresh, rows_u=rows_u)
 
 
 class EvictExport(NamedTuple):

@@ -47,6 +47,7 @@ from meepoembedding_tpu_torch.table.layout import (
     alloc_shard,
     resolve_device,
 )
+from meepoembedding_tpu_torch.tracing import span
 from meepoembedding_tpu_torch.weights import (
     from_jax_adam_state,
     from_jax_params,
@@ -118,9 +119,10 @@ class Trainer:
         return self.run_cfg.unique_cap or int(np.prod(ids_shape))
 
     def _inputs(self, batch: dict):
-        ids = _tensor(batch["ids"], self.device, torch.int64)
-        dense = _tensor(batch["dense"], self.device, torch.float32)
-        label = _tensor(batch["label"], self.device, torch.float32)
+        with span("meepo.train.inputs"):
+            ids = _tensor(batch["ids"], self.device, torch.int64)
+            dense = _tensor(batch["dense"], self.device, torch.float32)
+            label = _tensor(batch["label"], self.device, torch.float32)
         hi, lo = hashing.split_ids_t(ids)
         uniq = dedup.unique_pairs(hi.reshape(-1), lo.reshape(-1), self._unique_cap(ids.shape))
         # multi-hot bags ([B, S, L] ids, sentinel-padded) pool per feature
@@ -132,6 +134,10 @@ class Trainer:
         """One step on a batch {"dense": [B, ND], "ids": [B, S] or [B, S, L]
         int64, "label": [B]}. Returns {"loss": float}; the step's logits stay
         in `last_logits`."""
+        with span("meepo.train.step"):
+            return self._train_step(batch)
+
+    def _train_step(self, batch: dict) -> dict:
         spec, rc = self.spec, self.run_cfg
         shape, dense, label, uniq, bag_valid, ikey = self._inputs(batch)
         logq = None
@@ -141,20 +147,27 @@ class Trainer:
         ctx = table_ops.lookup_train(spec, self.shard, uniq.hi, uniq.lo, uniq.valid, self.step)
         rows_u = ctx.rows_u.detach().requires_grad_(True)
         flat = dedup.GatherRows.apply(rows_u, uniq.inverse, uniq.order, uniq.sorted_ids)
-        emb = model_inputs(self.model, flat, shape, bag_valid, spec.dim, self.model_cfg.combiner)
-        loss, logits = model_loss(self.model, dense, emb, bag_valid, label, ikey, logq=logq)
-        g_rows, *g_dense = torch.autograd.grad(loss, [rows_u, *self.params])
+        with span("meepo.tower.forward"):
+            emb = model_inputs(self.model, flat, shape, bag_valid, spec.dim,
+                               self.model_cfg.combiner)
+            loss, logits = model_loss(self.model, dense, emb, bag_valid, label, ikey, logq=logq)
+        with span("meepo.tower.backward"):
+            g_rows, *g_dense = torch.autograd.grad(loss, [rows_u, *self.params])
         with torch.no_grad():
             optim.apply_sparse_grads_ctx(spec, self.shard, ctx, g_rows)
-            if rc.grad_clip_norm is not None:
-                g_dense = optim.clip_by_global_norm(g_dense, rc.grad_clip_norm)
-            lr = optim.schedule_lr(rc.lr_schedule, rc.dense_learning_rate, self.step,
-                                   rc.steps, rc.warmup_steps)
-            self.opt_state = optim.dense_adam_update(self.params, g_dense, self.opt_state, lr)
+            with span("meepo.tower.update"):
+                if rc.grad_clip_norm is not None:
+                    g_dense = optim.clip_by_global_norm(g_dense, rc.grad_clip_norm)
+                lr = optim.schedule_lr(rc.lr_schedule, rc.dense_learning_rate, self.step,
+                                       rc.steps, rc.warmup_steps)
+                self.opt_state = optim.dense_adam_update(self.params, g_dense, self.opt_state,
+                                                         lr)
         self.step += 1
-        self.last_logits = logits.detach()
-        self.auc.update(self.last_logits, label)
-        return {"loss": float(loss.detach())}
+        with span("meepo.train.metrics"):
+            self.last_logits = logits.detach()
+            self.auc.update(self.last_logits, label)
+        with span("meepo.train.loss_sync"):
+            return {"loss": float(loss.detach())}
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:

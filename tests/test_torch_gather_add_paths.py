@@ -11,7 +11,8 @@ plain versions and the callers' use of them:
   bit-exact (one add an element in both), `old` equal to the Pallas
   `row_gather` of the kept rows and 0 on dropped rows;
 - the callers: `probe` gathers both key planes in one call a round group,
-  `plan_insert` in one call a round (counted in `plan_insert.rounds`), and
+  `plan_insert` in one call a round (counted by its `meepo.table.plan_round`
+  spans under the profiler), and
   a Trainer step adds to the rowwise accumulator in one fetch-add with no
   gather of it.
 
@@ -174,6 +175,14 @@ def test_probe_gathers_both_key_planes_once_a_round_group(monkeypatch, rounds):
         assert tuple(planes[0].shape) == (spec.num_buckets // 2, 256)
 
 
+def _plan_rounds(fn):
+    """(fn(), the insert-planning rounds it ran): its `meepo.table.plan_round`
+    spans under the profiler."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, sum(e.name == "meepo.table.plan_round" for e in prof.events())
+
+
 def test_plan_insert_gathers_both_key_planes_once_a_round(monkeypatch):
     """A 16-bucket table asked to place 1,900 keys: buckets overflow, so
     planning takes several rounds, each one gather."""
@@ -182,9 +191,8 @@ def test_plan_insert_gathers_both_key_planes_once_a_round(monkeypatch):
     spec = tl.TableSpec.from_config(TableConfig(dim=8, capacity=16 * 128, max_probe_rounds=4))
     shard = tl.alloc_shard(spec, "cpu")
     hi, lo = _keys(2, 1900)
-    before = tx.plan_insert.rounds
-    plan = tx.plan_insert(spec, shard, hi, lo, torch.ones(hi.shape, dtype=torch.bool))
-    rounds = tx.plan_insert.rounds - before
+    plan, rounds = _plan_rounds(
+        lambda: tx.plan_insert(spec, shard, hi, lo, torch.ones(hi.shape, dtype=torch.bool)))
     assert rounds >= 2 and len(spy.calls) == rounds
     assert int(plan.ok.sum()) > 0
     for (planes, idx), _ in spy.calls:
@@ -208,9 +216,7 @@ def test_train_step_fetch_adds_the_accumulator_without_a_gather(monkeypatch):
                  device="cpu")
     batch = next(iter(SyntheticStream(SyntheticConfig(num_dense=4, num_sparse=3, batch_size=64,
                                                       seed=9)).batches(1)))
-    rounds = tx.plan_insert.rounds
-    tr.train_step(batch)
-    rounds = tx.plan_insert.rounds - rounds
+    _, rounds = _plan_rounds(lambda: tr.train_step(batch))
     accum = tr.shard.opt_rowwise[0]
     assert len(adds.calls) == 1
     (plane, idx, upd, old), _ = adds.calls[0]
