@@ -33,7 +33,16 @@ Phases (any failure exits non-zero and prints no result line):
            training steps on a 2^16-slot table on the card and on the CPU
            from one state: key, freq, last, cnt, ovf and counters equal;
            values, accumulators and loss within rtol 1e-5 / atol 1e-6;
-           dense params within atol 1e-4.
+           dense params within atol 1e-4. Then the bucket probe on the key
+           planes of the benchmark's two filled tables
+           (`time_bucket_probe`: every vocabulary id of
+           benchmark/configs/dlrm-kaggle.json and dlrm-mlperf-tb.json
+           through insert_rows at the configuration's capacity and probe
+           rounds): on 8 training batches' worth of ids each (B x 26 ids,
+           the share of unknown ids, padded), the kernel equal to the plain
+           version bit for bit, slot and found; the share of found keys
+           resolved in the first to fourth bucket of their walk; the
+           kernel's call, device, plain and host times and its bytes bound.
   serve    the serving path, with the kernels' launch counters set to 0
            just before it: a one-shard checkpoint in the reference format
            (numpy, from --seed) restores into a ScoringService over a
@@ -43,8 +52,8 @@ Phases (any failure exits non-zero and prints no result line):
            live, 10% unknown) are scored and timed; one request's rows are
            held against the rows that were written, its scores against the
            tower on the CPU, and one POST /score against the direct score.
-           Fails unless a request launches 4 row_gather (the probe's 2
-           round groups, each both key planes; the values; the inverse).
+           Fails unless a request launches 1 bucket_probe and 2
+           row_gather (the values; the inverse).
            Right after the restore, before the fill, it makes the
            sharded_http phase's requests (5 warm-up and 32 timed of 4096 x
            26 ids of the checkpoint, 10% unknown, and one of 37 rows),
@@ -83,19 +92,20 @@ Phases (any failure exits non-zero and prints no result line):
            p50 over the fast path's is the card's exchange tax at S = 1.
            Fails on a non-finite loss, a drop, or other launches a step than
            these, derived from the train phase's (1 set, 1 row_scatter_add,
-           3 K1, 4 row_gather + 1 a planning round): the fast path launches
-           the train phase's; the dense exchange adds the owner side's
-           gather of its rows by its dedup inverse, the source side's gather
-           of the rows that come back, and the 2 K1 of the owner's segment
-           sum of the received gradients: 1 set, 1 row_scatter_add, 5 K1, 6
-           row_gather + 1 a round; the ragged exchange places the returning
-           rows by a scatter (no kernel): 5 row_gather + 1 a round, the rest
-           as the dense. (c) A ShardedScoringService restores the serve
-           checkpoint (8,388,608 rows) into a 2^24-slot shard; 32 requests of
-           4096 x 26 of its ids (10% unknown) are timed, each failing unless
-           it launches 5 row_gather (a single-device request's 4 plus the
-           returning rows' gather) and nothing else, and unless its scores
-           equal an f32 ScoringService's on the same checkpoint within rtol
+           3 K1, 1 bucket_probe, 2 row_gather + 1 a planning round): the
+           fast path launches the train phase's; the dense exchange adds the
+           owner side's gather of its rows by its dedup inverse, the source
+           side's gather of the rows that come back, and the 2 K1 of the
+           owner's segment sum of the received gradients: 1 set, 1
+           row_scatter_add, 5 K1, 1 bucket_probe, 4 row_gather + 1 a round;
+           the ragged exchange places the returning rows by a scatter (no
+           kernel): 3 row_gather + 1 a round, the rest as the dense. (c) A
+           ShardedScoringService restores the serve checkpoint (8,388,608
+           rows) into a 2^24-slot shard; 32 requests of 4096 x 26 of its ids
+           (10% unknown) are timed, each failing unless it launches 1
+           bucket_probe and 3 row_gather (a single-device request's 2 plus
+           the returning rows' gather) and nothing else, and unless its
+           scores equal an f32 ScoringService's on the same checkpoint within rtol
            1e-6; one POST /score equals the direct score. (d) At reduced
            depth (2^20 slots): 12 steps with LFU/TTL eviction into a
            HostKVStore every 4 (evicted == spilled), promotion of spilled ids
@@ -121,8 +131,9 @@ Phases (any failure exits non-zero and prints no result line):
            to 0 just before it: 2^24 slots a rank (8 GiB of values; cut
            from a deployment's capacity), LFU/TTL with a HostKVStore on
            column 0; 5 + 30 timed steps, failing unless a step launches the
-           lifecycle's (2 sets, 2 row_scatter_add, 3 K1, 4 gathers + 1 a
-           planning round); 4 more steps with the column collectives timed
+           lifecycle's (2 sets, 2 row_scatter_add, 3 K1, 1 bucket_probe, 2
+           gathers + 1 a planning round); 4 more steps with the column
+           collectives timed
            apart (their share of a step); an eviction pass (3 gathers, 2
            sets; column 0 spills full-dim rows, as many as evicted);
            spilled ids trained again and promoted back, their full rows
@@ -141,9 +152,10 @@ Phases (any failure exits non-zero and prints no result line):
            hits, inserts and drops, first and last loss, launches per step;
            fails on a non-finite loss, drops above 1% of inserts, or other
            than 1 row_scatter_set, 1 row_scatter_add (the accumulator's
-           fetch-add) and 3 row_merge_add launches a step (the values
-           update; the segment sum's walk and combine pass), or other than
-           4 row_gather a step plus 1 a planning round (counted by the
+           fetch-add), 3 row_merge_add (the values update; the segment
+           sum's walk and combine pass) and 1 bucket_probe launches a step,
+           or other than 2 row_gather a step (the values, the inverse)
+           plus 1 a planning round (counted by the
            `meepo.table.plan_round` spans entered; so no gather of the
            accumulator), or, in an
            assign batch, other than 3 row_scatter_set launches. Then
@@ -154,8 +166,9 @@ Phases (any failure exits non-zero and prints no result line):
            kernel against its plain version on those inputs (writes on
            copies of the planes), whose largest difference is max_abs_err.
            Also the train step's and a restore batch's multi-plane sets
-           (library: one index_put_ a plane), the key-pair gathers of the
-           probe and of insert planning (library: one index_select a
+           (library: one index_put_ a plane), the bucket probe of a
+           request's unique ids (no library call computes a probe), the
+           key-plane gather of insert planning (library: one index_select a
            plane), the step's fetch-add (library: index_select +
            index_add_), the segment sum's walk and combine pass apart, a
            check that the step's valid slots are unique, the 32-byte-sector
@@ -188,8 +201,9 @@ Phases (any failure exits non-zero and prints no result line):
            invariants 0), and promotion of 4,096 spilled ids through a
            table's train lookups (rows equal their payload, promotes
            counted, gone from the store). A step must launch 2 sets, 2
-           row_scatter_add, 3 row_merge_add and 4 + rounds row_gather; a
-           pass 3 row_gather and 2 sets. (b) At reduced depth, same width:
+           row_scatter_add, 3 row_merge_add, 1 bucket_probe and 2 + rounds
+           row_gather; a pass 3 row_gather and 2 sets. (b) At reduced
+           depth, same width:
            a Trainer on a 2^23-slot table filled to 6,000,000 rows saves
            async after 3 steps and streamed (parts of 2^22 rows) after 5;
            both restore with every row and dense leaf equal to the
@@ -236,7 +250,8 @@ Phases (any failure exits non-zero and prints no result line):
            apart), times 30 requests of 256 queries at k = 100 and logs
            evaluate's recall@{1,10,100} on the held-out batches; POST
            /retrieve equals retrieve. Fails unless an index lookup or a
-           request launches 4 row_gather (f32) or 2 (int8). The f32
+           request launches 1 bucket_probe and 2 row_gather (f32) or 2
+           row_gather alone (int8). The f32
            service also answers one request over the corpus cut to its
            first 2^16 items, which the sharded_http phase holds its
            /retrieve to; the checkpoint stays for that phase.
@@ -297,15 +312,15 @@ Phases (any failure exits non-zero and prints no result line):
            1e-5, atol 1e-6). (c) The group_sharded phase's members (2^20
            slots) in a GroupScoringService(distributed=True) a rank; one
            request of 4096 examples equals the single-device scores. Fails
-           unless every score or lookup call on a rank launches 5
-           row_gather (the sharded phase's request: the probe's 2, the
-           values, the returning rows, the inverse; a group request 5 a
-           member) and nothing else.
+           unless every score or lookup call on a rank launches 1
+           bucket_probe and 3 row_gather (the sharded phase's request: the
+           values, the returning rows, the inverse; a group request that
+           many a member) and nothing else.
   entry    the entry points (`meepoembedding_tpu_torch/entry.py`):
            `entry(device="cuda")`'s forward over the batch's rows (inserted
            from --seed) equals the same forward on the CPU through the
            plain versions (rtol 1e-5, atol 1e-6), failing unless it
-           launches 4 row_gather and nothing else; then
+           launches 1 bucket_probe and 2 row_gather and nothing else; then
            `dryrun_multichip(torch.cuda.device_count())`, a world of one
            over NCCL in a spawned process.
   cli      the command line (`python -m meepoembedding_tpu_torch`), in two
@@ -330,12 +345,13 @@ Phases (any failure exits non-zero and prints no result line):
            the serve phase's ScoringService on the same batches, and `eval` of
            8 of them, whose AUC (within 1e-6) and mean loss (rtol 1e-5) are
            those of that service's scores. Each in-process command is held to
-           its launches: a restore batch 3 sets and 2 gathers, a scoring
-           batch 4 gathers, a train step the train phase's, an import chunk 3
-           sets and 2 gathers and a saved part file 3 gathers, a bench
-           prefill batch 3 sets and 1 gather (max_probe_rounds 2) and a bench
-           cycle 1 set and 3 gathers (+ 3 K1 and 1 fetch-add to update), and
-           1 gather a planning round; inspect and export launch nothing.
+           its launches: a restore batch 3 sets and 1 probe, a scoring
+           batch 1 probe and 2 gathers, a train step the train phase's, an
+           import chunk 3 sets and 1 probe and a saved part file 3 gathers,
+           a bench prefill batch 3 sets and 1 probe and a bench cycle 1
+           set, 1 probe and 2 gathers (+ 3 K1 and 1 fetch-add to update),
+           and 1 gather a planning round; inspect and export launch
+           nothing.
 
   harness  the measurement harnesses (`meepoembedding_tpu_torch/bench/`),
            each called in-process through its `run()` with the counters set
@@ -462,6 +478,8 @@ from meepoembedding_tpu_torch.metrics import StreamingAUC
 from meepoembedding_tpu_torch.group_train import GroupTrainer, ShardedGroupTrainer
 from meepoembedding_tpu_torch.kernels import (
     _build,
+    bucket_probe,
+    bucket_probe_plain,
     row_block_gather,
     row_block_gather_plain,
     row_block_scatter,
@@ -997,7 +1015,7 @@ def make_request(rng, pools, batch, nsparse, unknown_frac=0.1):
     return ids.reshape(batch, nsparse)
 
 
-KERNELS = (row_gather, row_scatter_set, row_scatter_add, row_merge_add)
+KERNELS = (row_gather, row_scatter_set, row_scatter_add, row_merge_add, bucket_probe)
 # the DMA probe's kernels (K6, K7): only the dma phase launches them, and
 # their counters are set to 0 only there
 DMA_KERNELS = (row_block_gather, row_block_scatter)
@@ -1168,10 +1186,11 @@ def serve(args, dev, rng, card: str) -> dict:
         f"p99 {np.percentile(lat, 99):.3f} ms, mean {lat.mean():.3f} ms, "
         f"{ids_per_req * len(lat) / (lat.sum() / 1e3):.0f} ids/s on {card}; launches per "
         f"request: {delta(at, len(lat))}")
-    gathers = launches()["row_gather"] - at["row_gather"]
-    if dev.type == "cuda" and gathers != 4 * len(lat):
-        raise AssertionError(f"{len(lat)} requests launched row_gather {gathers} times, not 4 "
-                             f"a request (the probe's 2 round groups, the values, the inverse)")
+    d = _launch_delta(at)
+    if dev.type == "cuda" and (d["row_gather"], d["bucket_probe"]) != (2 * len(lat), len(lat)):
+        raise AssertionError(f"{len(lat)} requests launched row_gather {d['row_gather']} and "
+                             f"bucket_probe {d['bucket_probe']} times, not 2 and 1 a request "
+                             f"(the values, the inverse; the probe)")
 
     # one request's rows against the rows that were written (restored from
     # the checkpoint or assigned), and zero rows for the unknown ids
@@ -1371,7 +1390,7 @@ def device_us(e) -> float:
 
 # the __global__ functions of the repo's kernels: a wrapper's launch is one of them
 OUR_KERNELS = ("row_gather_vecs", "row_set_kernel", "row_add_vecs", "add_unique",
-               "segment_walk", "segment_combine", "row_block_copy")
+               "segment_walk", "segment_combine", "row_block_copy", "bucket_probe_kernel")
 PROFILE_SESSIONS = 3  # profiler sessions device_ms tries before "not measured"
 L2_FLUSH_WORDS = 1 << 26  # 256 MB of int32, five times the 50 MB L2
 
@@ -1550,11 +1569,138 @@ def log_timings(out) -> None:
     for name, e in out:
         sector = (f", {e['sector_bound_ms']:.4f} ms (32-byte sectors)"
                   if "sector_bound_ms" in e else "")
+        library = ("no library call" if e["library_ms"] is None
+                   else f"library {e['library_ms']:.4f} ms")
+        host = f", host {e['host_us']:.2f} us" if "host_us" in e else ""
         log(f"timing {name} [{e['label']}] {e['shape']}: kernel {e['ms']:.4f} ms (device "
             f"{fmt_ms(e['device_ms'])} a call, {fmt_ms(e['kernel_ms'])} in the kernel), "
-            f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, "
-            f"bound {e['bound_ms']:.4f} ms (bytes){sector}; max |kernel - plain| "
+            f"plain {e['plain_ms']:.4f} ms, {library}, "
+            f"bound {e['bound_ms']:.4f} ms (bytes){sector}{host}; max |kernel - plain| "
             f"{e['max_abs_err']}")
+
+
+def walk_positions(slot, uh, ul, nb: int) -> torch.Tensor:
+    """For each found key, the 1-based position in its probe walk of the
+    bucket that resolved it: bucket 2 (p0 ^ g) + h is position 2 g + h + 1."""
+    hit = slot >= 0
+    b = slot[hit] // LANES
+    if nb == 1:
+        return torch.ones_like(b)
+    p0 = hashing.bucket_of(uh[hit], ul[hit], nb) >> 1
+    return 2 * ((b >> 1) ^ p0) + (b & 1) + 1
+
+
+# the benchmark's two configurations: their file, a training batch's examples
+# and the share of a batch's ids that the table has not seen
+PROBE_TABLES = (("dlrm-kaggle", 4096, 0.0283), ("dlrm-mlperf-tb", 8192, 0.0))
+
+
+def time_bucket_probe(seed: int) -> list:
+    """bucket_probe on the key planes of the benchmark's two filled tables:
+    every vocabulary id of the configuration (id = feature << 44 | value) put
+    through insert_rows in batches of 2^20 into a table of the
+    configuration's capacity and probe rounds (a 1-wide values plane, which
+    the probe never reads). The probe inputs are a training batch's worth of
+    ids (B x 26), drawn uniformly from the vocabulary with the configuration's
+    share of unknown ids, padded with invalid ids to the power of two that
+    the step's dedup pads to; 8 such sets. Fails unless the kernel equals
+    the plain version bit for bit, slot and found, on every set. Logs the
+    share of the found keys resolved in the first to fourth bucket of their
+    walk, and times the kernel (events, profiler device time, the wrapper's
+    host time) beside the plain version and the bytes bound (14 bytes a key,
+    512 a bucket visited, 16 a hit)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 19)
+    out = []
+    for name, batch, unknown_share in PROBE_TABLES:
+        conf = json.loads((ROOT / "benchmark" / "configs" / f"{name}.json").read_text())
+        cards = torch.tensor(conf["cardinalities"], dtype=torch.int64, device=dev)
+        off = torch.cat([cards.new_zeros(1), torch.cumsum(cards, 0)])
+        total, tcfg = int(off[-1]), conf["table"]
+        spec = TableSpec.from_config(TableConfig(dim=1, capacity=tcfg["capacity"],
+                                                 max_probe_rounds=tcfg["max_probe_rounds"]))
+        shard = alloc_shard(spec, dev)
+
+        def ids_at(pos):
+            f = torch.searchsorted(off[1:], pos, right=True)
+            return (f << 44) | (pos - off[f])
+
+        t0 = time.perf_counter()
+        landed = 0
+        for a in range(0, total, 1 << 20):
+            hi, lo = hashing.split_ids_t(ids_at(torch.arange(a, min(a + (1 << 20), total),
+                                                             device=dev)))
+            landed += int(table_ops.insert_rows(
+                spec, shard, hi, lo, torch.zeros((hi.shape[0], 1), device=dev),
+                hashing.is_valid(hi, lo), 0).sum())
+        sync(dev)
+        if landed != total:
+            raise AssertionError(f"bucket_probe {name}: {landed} of {total} ids landed")
+        log(f"bucket_probe {name}: {total} ids in {spec.capacity} slots ({spec.num_buckets} "
+            f"buckets, load {total / spec.capacity:.4f}) filled in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        n_ids = batch * 26
+        n = 1 << (n_ids - 1).bit_length()
+        sets = []
+        for _ in range(8):
+            ids = ids_at(torch.randint(0, total, (n_ids,), device=dev, generator=g))
+            unknown = torch.rand((n_ids,), device=dev, generator=g) < unknown_share
+            ids = torch.where(unknown, ids | (1 << 40), ids)  # values past every cardinality
+            ids = torch.cat([ids, ids.new_full((n - n_ids,), int(hashing.EMPTY_ID))])
+            hi, lo = hashing.split_ids_t(ids)
+            sets.append((hi, lo, hashing.is_valid(hi, lo)))
+        out.append(("bucket_probe", probe_entry(
+            f"{name} training batch", f"load {total / spec.capacity:.4f}, {n_ids} ids "
+            f"({unknown_share} unknown)", shard, spec, sets)))
+        del shard
+        torch.cuda.empty_cache()
+    log_timings(out)
+    return out
+
+
+def probe_entry(label: str, about: str, shard, spec, sets) -> dict:
+    """The timing record of bucket_probe on the shard's key planes over the
+    input sets `sets` ((hi, lo, valid) each): fails unless the kernel equals
+    the plain version bit for bit, slot and found, on every set; logs the
+    share of found keys resolved in each bucket of the walk. The bound reads
+    each key's 9 bytes and writes its 5, a 512-byte key_lo row for every
+    bucket a valid key visits (all of its walk where it is absent) and a
+    16-byte key_hi vector for every hit. No PyTorch call computes a probe
+    (library: none)."""
+    R, nb = spec.max_probe_rounds, spec.num_buckets
+    walk = 1 if nb == 1 else 2 * ((min(R, nb) + 1) // 2)
+    n = sets[0][0].shape[0]
+    visited = hits = valid_keys = 0
+    positions = []
+    for hi, lo, valid in sets:
+        slot, found = bucket_probe(shard.key_hi, shard.key_lo, hi, lo, valid, R)
+        pslot, pfound = bucket_probe_plain(shard.key_hi, shard.key_lo, hi, lo, valid, R)
+        if not (torch.equal(slot, pslot) and torch.equal(found, pfound)):
+            raise AssertionError(f"bucket_probe [{label}] disagrees with its plain version")
+        pos = walk_positions(slot, hi, lo, nb)
+        visited += int(pos.sum()) + int((valid & ~found).sum()) * walk
+        hits += int(found.sum())
+        valid_keys += int(valid.sum())
+        positions.append(pos)
+    pos = torch.cat(positions)
+    share = [float((pos == k).sum()) / max(1, pos.numel()) for k in range(1, 5)]
+    log(f"bucket_probe [{label}]: kernel = plain bit for bit on {len(sets)} sets of n={n}; "
+        f"found keys resolved in bucket 1, 2, 3, 4 of their walk: "
+        + ", ".join(f"{x:.6f}" for x in share)
+        + f"; {hits / len(sets):.1f} found and {visited / max(1, valid_keys):.4f} buckets "
+        f"visited a valid key")
+    calls = [lambda s=s: bucket_probe(shard.key_hi, shard.key_lo, *s, R) for s in sets]
+    nbytes = (14 * n * len(sets) + 512 * visited + 16 * hits) / len(sets)
+    dev_ms, kern_ms = device_ms(calls, "bucket_probe_kernel")
+    e = {"label": label,
+         "shape": f"2 x {tuple(shard.key_hi.shape)} int32, {about}, n={n}, rounds {R}",
+         "ms": time_ms(calls), "device_ms": dev_ms, "kernel_ms": kern_ms,
+         "plain_ms": time_ms([lambda s=s: bucket_probe_plain(shard.key_hi, shard.key_lo, *s, R)
+                              for s in sets]),
+         "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_err": 0.0,
+         "host_us": host_time(f"bucket_probe [{label}]", calls[0]), "resolved_share": share}
+    return e
 
 
 def time_kernels(svc, requests, seed: int) -> list:
@@ -1571,8 +1717,8 @@ def time_kernels(svc, requests, seed: int) -> list:
     out = []
 
     # each request's unique ids, padded as lookup pads them, and what the
-    # lookup gathers for them: found slots and probe bucket pairs
-    slots, pgs = [], []
+    # lookup probes and gathers for them: the keys, the found slots
+    slots, probe_sets = [], []
     for _, ids in requests[:8]:
         flat = torch.from_numpy(ids.reshape(-1)).to(dev)
         npad = 1 << (flat.shape[0] - 1).bit_length()
@@ -1580,8 +1726,7 @@ def time_kernels(svc, requests, seed: int) -> list:
         uniq = dedup.unique_pairs(*hashing.split_ids_t(flat), npad)
         pr = table_ops.probe(spec, shard, uniq.hi, uniq.lo, uniq.valid)
         slots.append(torch.where(pr.found, pr.slot, 0).to(torch.int32))
-        pgs.append(hashing.bucket_of(uniq.hi, uniq.lo, spec.num_buckets) >> 1)
-    pairs = [p.view(spec.num_buckets // 2, 2 * LANES) for p in (shard.key_hi, shard.key_lo)]
+        probe_sets.append((uniq.hi, uniq.lo, uniq.valid))
 
     def set_check(plane, idxs, new_upd):
         got, want = plane.clone(), plane.clone()
@@ -1594,10 +1739,10 @@ def time_kernels(svc, requests, seed: int) -> list:
     profiler_methods("values per request", [lambda i=i: row_gather(shard.values, i)
                                             for i in slots], "row_gather_")
     out.append(("row_gather", gather_entry("values per request", shard.values, slots)))
-    out.append(("row_gather", gather_entry(
-        "key pairs (key_hi, key_lo) per probe round group", pairs, pgs)))
+    out.append(("bucket_probe", probe_entry(
+        "per request", f"load {table.load_factor:.4f}, a request's unique ids", shard, spec,
+        probe_sets)))
     host_time("row_gather one plane (values)", lambda: row_gather(shard.values, slots[0]))
-    host_time("row_gather_multi two planes (key pair)", lambda: row_gather_multi(pairs, pgs[0]))
 
     # restore-batch-sized sets of live slots, writing back what is there:
     # one element per slot into the flat key plane, whole rows into the
@@ -2032,8 +2177,8 @@ def lifecycle_live(args, table, assigned, dev, card: str) -> dict:
             raise AssertionError(f"lifecycle step {i}: loss {loss}")
         d, rounds = _launch_delta(at), plan_rounds() - r0
         # LFU/TTL keeps scores: touch adds freq (a K3 add) and sets last (a set)
-        want = {"row_gather": 4 + rounds, "row_scatter_set": 2, "row_scatter_add": 2,
-                "row_merge_add": 3}
+        want = {"row_gather": 2 + rounds, "row_scatter_set": 2, "row_scatter_add": 2,
+                "row_merge_add": 3, "bucket_probe": 1}
         if on_card and d != want:
             raise AssertionError(f"lifecycle step {i} launched {d}, not {want}")
         step_launches = d
@@ -2049,7 +2194,8 @@ def lifecycle_live(args, table, assigned, dev, card: str) -> dict:
         sync(dev)
         pass_ms.append((time.perf_counter() - t0) * 1e3)
         pass_launches = _launch_delta(at)
-        want = {"row_gather": 3, "row_scatter_set": 2, "row_scatter_add": 0, "row_merge_add": 0}
+        want = {"row_gather": 3, "row_scatter_set": 2, "row_scatter_add": 0, "row_merge_add": 0,
+                "bucket_probe": 0}
         if on_card and pass_launches != want:
             raise AssertionError(f"a maintenance pass launched {pass_launches}, not {want}")
         if n != len(ids) or n == 0:
@@ -2336,7 +2482,7 @@ def time_lifecycle_kernels(tr, policy, seed: int) -> list:
 # --- shared by the later phases ---------------------------------------------------
 
 TRAIN_STEP_LAUNCHES = {"row_scatter_set": 1, "row_scatter_add": 1, "row_merge_add": 3,
-                       "row_gather": 4}  # a train step's, and 1 gather a planning round
+                       "row_gather": 2, "bucket_probe": 1}  # and 1 gather a planning round
 
 
 def run_steps(name: str, step, batches, dev, card: str, want=None) -> dict:
@@ -2456,13 +2602,15 @@ def int8(args, res, dev, card: str) -> dict:
              make_request(rng, [ids], args.batch, ns)) for _ in range(args.requests + 3)]
     for dense, r in reqs[:3]:
         svc8.score(dense, r)
-    lat, gap, gathers = [], 0.0, 0
+    lat, gap, gathers, probes = [], 0.0, 0, 0
     for dense, r in reqs[3:]:
         at = launches()
         t0 = time.perf_counter()
         p8 = svc8.score(dense, r)
         lat.append((time.perf_counter() - t0) * 1e3)
-        gathers += _launch_delta(at)["row_gather"]
+        d = _launch_delta(at)
+        gathers += d["row_gather"]
+        probes += d["bucket_probe"]
         gap = max(gap, float(np.abs(p8 - svc.score(dense, r)).max()))
     lat = np.asarray(lat)
     serve_gap = max(float(np.abs(svc8.score(d, r) - svc.score(d, r)).max())
@@ -2472,9 +2620,9 @@ def int8(args, res, dev, card: str) -> dict:
         f"row_gather {gathers / len(lat):.2f} a request; largest |int8 - f32| score "
         f"{gap:.3e} (the serve phase's requests, whose assigned ids the checkpoint lacks: "
         f"{serve_gap:.3e})")
-    if dev.type == "cuda" and gathers != 2 * len(lat):
-        raise AssertionError(f"int8 requests launched row_gather {gathers} times, not 2 a "
-                             f"request (codes, side plane)")
+    if dev.type == "cuda" and (gathers, probes) != (2 * len(lat), 0):
+        raise AssertionError(f"int8 requests launched row_gather {gathers} and bucket_probe "
+                             f"{probes} times, not 2 a request (codes, side plane) and none")
     dense, r = reqs[3]
     http = serving(svc8, lambda s: post_json(s, "/score", {"dense": dense.tolist(),
                                                             "ids": r.tolist()}))
@@ -2565,7 +2713,8 @@ def retrieval(args, dev, card: str) -> dict:
     query_pool = np.unique(trained[:, :mc.num_query_features])
     requests = [(rng.standard_normal((nq, mc.num_dense_features), dtype=np.float32),
                  rng.choice(query_pool, (nq, mc.num_query_features))) for _ in range(nreq + 2)]
-    gathers_a_lookup = {"none": 4, "int8": 2}
+    # (row_gather, bucket_probe) a lookup: f32 probes, int8 searches on the host
+    gathers_a_lookup = {"none": (2, 1), "int8": (2, 0)}
     try:
         for quantize in ("none", "int8"):
             svc = ScoringService(str(root / "ckpt"), table_cfg, mc, quantize=quantize,
@@ -2577,7 +2726,8 @@ def retrieval(args, dev, card: str) -> dict:
             sync(dev)
             build_s = time.perf_counter() - t0
             lookups = -(-n_items // ret.embed_batch)
-            built = _launch_delta(at)["row_gather"]
+            d = _launch_delta(at)
+            built = (d["row_gather"], d["bucket_probe"])
             with torch.no_grad():  # the item vectors, embedded here for the brute force
                 vecs = torch.cat([svc.model.embed_item(svc.table.lookup(
                     item_ids[s:s + 8192].reshape(-1), train=False).reshape(
@@ -2593,7 +2743,8 @@ def retrieval(args, dev, card: str) -> dict:
                 t0 = time.perf_counter()
                 keys, scores = ret.retrieve(d, q, k=RETR_K)
                 lat.append((time.perf_counter() - t0) * 1e3)
-            per_req = _launch_delta(at)["row_gather"] / len(lat)
+            d = _launch_delta(at)
+            per_req = (d["row_gather"] / len(lat), d["bucket_probe"] / len(lat))
             if dev.type == "cuda":
                 run_profiled(f"retrieval {quantize}", lambda: [ret.retrieve(
                     d, q, k=RETR_K) for d, q in requests[2:6]], 4, "request")
@@ -2601,19 +2752,21 @@ def retrieval(args, dev, card: str) -> dict:
             lat = np.asarray(lat)
             log(f"retrieval {quantize}: index of {n_items} items x "
                 f"{mc.num_sparse_features - mc.num_query_features} ids built in {build_s:.2f} s "
-                f"({n_items / build_s:.0f} items/s, row_gather {built / lookups:.2f} a lookup of "
+                f"({n_items / build_s:.0f} items/s, row_gather {built[0] / lookups:.2f} and "
+                f"bucket_probe {built[1] / lookups:.2f} a lookup of "
                 f"{ret.embed_batch} items); {len(lat)} requests of {nq} queries at k = "
                 f"{RETR_K}: p50 {np.percentile(lat, 50):.3f} ms, p99 "
-                f"{np.percentile(lat, 99):.3f} ms on {card} (row_gather {per_req:.2f} a "
-                f"request); top-k of 8 queries = brute-force f32 q @ V.T (largest score "
+                f"{np.percentile(lat, 99):.3f} ms on {card} (row_gather {per_req[0]:.2f} and "
+                f"bucket_probe {per_req[1]:.2f} a request); top-k of 8 queries = brute-force f32 q @ V.T (largest score "
                 f"difference {diff:.3e}); evaluate on {recall['positives']} held-out "
                 f"positives: " + ", ".join(f"{k} {v:.4f}" for k, v in recall.items()
                                             if k.startswith("recall")))
-            if dev.type == "cuda" and (built != gathers_a_lookup[quantize] * lookups
-                                       or per_req != gathers_a_lookup[quantize]):
-                raise AssertionError(f"retrieval {quantize}: row_gather {built} times over "
-                                     f"{lookups} index lookups and {per_req} a request, "
-                                     f"not {gathers_a_lookup[quantize]} a lookup")
+            want = gathers_a_lookup[quantize]
+            if dev.type == "cuda" and (built != tuple(lookups * w for w in want)
+                                       or per_req != want):
+                raise AssertionError(f"retrieval {quantize}: (row_gather, bucket_probe) "
+                                     f"{built} over {lookups} index lookups and {per_req} a "
+                                     f"request, not {want} a lookup")
             out[quantize] = {"build_items_per_s": n_items / build_s,
                              "p50_ms": float(np.percentile(lat, 50)),
                              "p99_ms": float(np.percentile(lat, 99)), **recall}
@@ -2719,10 +2872,13 @@ SHARDED_LIFE_CAP = 1 << 20  # part d's table
 # received gradients (2 K1) and, dense only, the gather of the returning rows
 SHARDED_LAUNCHES = {
     "fast": TRAIN_STEP_LAUNCHES,
-    "dense": {"row_scatter_set": 1, "row_scatter_add": 1, "row_merge_add": 5, "row_gather": 6},
-    "ragged": {"row_scatter_set": 1, "row_scatter_add": 1, "row_merge_add": 5, "row_gather": 5},
+    "dense": {"row_scatter_set": 1, "row_scatter_add": 1, "row_merge_add": 5, "row_gather": 4,
+              "bucket_probe": 1},
+    "ragged": {"row_scatter_set": 1, "row_scatter_add": 1, "row_merge_add": 5, "row_gather": 3,
+               "bucket_probe": 1},
 }
-SHARDED_REQUEST_GATHERS = 5  # the probe's 2, the values, the returning rows, the inverse
+SHARDED_REQUEST_GATHERS = 3  # the values, the returning rows, the inverse
+SHARDED_REQUEST_PROBES = 1
 
 
 def check_sharded_parity(seed: int, meshes: dict, dev) -> dict:
@@ -2826,9 +2982,11 @@ def sharded_serving(args, res, mesh, dev, card: str) -> dict:
         lat.append((time.perf_counter() - t0) * 1e3)
         got = _launch_delta(at)
         if dev.type == "cuda" and got != {**{k: 0 for k in got},
-                                          "row_gather": SHARDED_REQUEST_GATHERS}:
+                                          "row_gather": SHARDED_REQUEST_GATHERS,
+                                          "bucket_probe": SHARDED_REQUEST_PROBES}:
             raise AssertionError(f"a sharded request launched {got}, not "
-                                 f"{SHARDED_REQUEST_GATHERS} row_gather and nothing else")
+                                 f"{SHARDED_REQUEST_GATHERS} row_gather, "
+                                 f"{SHARDED_REQUEST_PROBES} bucket_probe and nothing else")
         want = ref.score(dense, ids)
         np.testing.assert_allclose(p, want, rtol=1e-6, atol=0)
         gap = max(gap, float(np.abs(p - want).max()))
@@ -2837,7 +2995,8 @@ def sharded_serving(args, res, mesh, dev, card: str) -> dict:
         f"{_ms(restore_s)}; {len(lat)} requests of {args.batch} x {ns} ids (10% unknown): p50 "
         f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms, "
         f"{args.batch * ns * len(lat) / (lat.sum() / 1e3):.0f} ids/s on {card}; "
-        f"{SHARDED_REQUEST_GATHERS} row_gather a request; scores equal the f32 ScoringService's "
+        f"{SHARDED_REQUEST_GATHERS} row_gather and {SHARDED_REQUEST_PROBES} bucket_probe a "
+        f"request; scores equal the f32 ScoringService's "
         f"within rtol 1e-6 (max |diff| {gap}); route drops {svc.route_drops}")
     dense, ids = reqs[3]
     body = {"dense": dense.tolist(), "ids": ids.tolist()}
@@ -3002,11 +3161,12 @@ def group_cfgs(caps: dict, user=None, item=None) -> dict:
 
 def member_launches(kind: str) -> dict:
     """One member's launches in a group step, planning rounds aside: the
-    probe's 2 round groups, the values read and the rows by the inverse (4
+    probe (1 bucket_probe), the values read and the rows by the inverse (2
     gathers), the fresh keys' set, the segment sum's walk and combine (2
     K1); then rowwise AdaGrad's fetch-add and values add, or FTRL's fresh
     rows' init add, one gather of z, n and values, and their 3 adds."""
-    want = {"row_scatter_set": 1, "row_scatter_add": 0, "row_merge_add": 2, "row_gather": 4}
+    want = {"row_scatter_set": 1, "row_scatter_add": 0, "row_merge_add": 2, "row_gather": 2,
+            "bucket_probe": 1}
     if kind == "rowwise_adagrad":
         want["row_scatter_add"] += 1
         want["row_merge_add"] += 1
@@ -3246,9 +3406,9 @@ COL_PROMOTE = 1024  # spilled ids trained again and promoted back
 # a K3 add); the column collectives launch no kernel. An eviction pass: 3
 # gathers (the window, the export's bucket planes, its rows) and 2 sets.
 COL_STEP_LAUNCHES = {"row_scatter_set": 2, "row_scatter_add": 2, "row_merge_add": 3,
-                     "row_gather": 4}
+                     "row_gather": 2, "bucket_probe": 1}
 COL_PASS_LAUNCHES = {"row_scatter_set": 2, "row_scatter_add": 0, "row_merge_add": 0,
-                     "row_gather": 3}
+                     "row_gather": 3, "bucket_probe": 0}
 
 
 def col_configs(args, rehearse: bool):
@@ -3933,10 +4093,12 @@ def sharded_http_phase(args, single: dict, dev, card: str) -> dict:
             raise AssertionError(f"sharded_http rank {r} exited {p.returncode}")
         ranks.append(json.loads([x for x in lines if x.startswith("{")][-1]))
     # each rank's launches a call: a request's or an index lookup's
-    # SHARDED_REQUEST_GATHERS, a group request's that many a member
-    want = {"score": [SHARDED_REQUEST_GATHERS] * res["score"]["scored"],
-            "retrieve": [SHARDED_REQUEST_GATHERS] * res["retrieve"]["lookups"],
-            "group": [SHARDED_REQUEST_GATHERS * len(GROUP_CAPS)] * res["group"]["scored"]}
+    # SHARDED_REQUEST_GATHERS and SHARDED_REQUEST_PROBES, a group request's
+    # that many a member
+    one = (SHARDED_REQUEST_GATHERS, SHARDED_REQUEST_PROBES)
+    want = {"score": [one] * res["score"]["scored"],
+            "retrieve": [one] * res["retrieve"]["lookups"],
+            "group": [tuple(len(GROUP_CAPS) * x for x in one)] * res["group"]["scored"]}
     for rk in ranks:
         if rk["rc"] != {p: 0 for p in FRONT_PARTS}:
             raise AssertionError(f"sharded_http rank {rk['rank']}: the stop op returned "
@@ -3946,10 +4108,12 @@ def sharded_http_phase(args, single: dict, dev, card: str) -> dict:
             if len(calls) != len(want[part]):
                 raise AssertionError(f"sharded_http rank {rk['rank']} {part}: {len(calls)} calls, "
                                      f"not {len(want[part])}")
-            for c, g in zip(calls, want[part]):
-                if dev.type == "cuda" and c != {**{k: 0 for k in c}, "row_gather": g}:
+            for c, (g, p) in zip(calls, want[part]):
+                if dev.type == "cuda" and c != {**{k: 0 for k in c}, "row_gather": g,
+                                                "bucket_probe": p}:
                     raise AssertionError(f"sharded_http rank {rk['rank']} {part}: a call "
-                                         f"launched {c}, not {g} row_gather and nothing else")
+                                         f"launched {c}, not {g} row_gather, {p} bucket_probe "
+                                         f"and nothing else")
     total = {k: sum(rk["launches"][k] for rk in ranks) for k in ranks[0]["launches"]}
     sc = res["score"]
     log(f"sharded_http: one LockstepFront over {FRONT_S} rank processes on {card} (a gloo "
@@ -3963,7 +4127,8 @@ def sharded_http_phase(args, single: dict, dev, card: str) -> dict:
         f"path 400 with the scores unchanged; /retrieve over {res['retrieve']['items']} items "
         f"equals the single-device keys; a group request equals the single-device "
         f"GroupScoringService's; the stop op ended both ranks with 0; "
-        f"{SHARDED_REQUEST_GATHERS} row_gather a request a rank; phase {phase_s:.1f} s; "
+        f"{SHARDED_REQUEST_GATHERS} row_gather and {SHARDED_REQUEST_PROBES} bucket_probe a "
+        f"request a rank; phase {phase_s:.1f} s; "
         f"launches {total}")
     return {"launches": total, "score": sc, "seconds": phase_s}
 
@@ -3991,9 +4156,10 @@ def entry_phase(args, dev, card: str) -> dict:
         if where == dev:
             counts = _launch_delta(at)
     np.testing.assert_allclose(outs[dev.type], outs["cpu"], rtol=1e-5, atol=1e-6)
-    if dev.type == "cuda" and counts != {**{k: 0 for k in counts}, "row_gather": 4}:
-        raise AssertionError(f"entry's forward launched {counts}, not 4 row_gather (the "
-                             f"probe's 2, the values, the inverse) and nothing else")
+    if dev.type == "cuda" and counts != {**{k: 0 for k in counts}, "row_gather": 2,
+                                         "bucket_probe": 1}:
+        raise AssertionError(f"entry's forward launched {counts}, not 2 row_gather (the "
+                             f"values, the inverse), 1 bucket_probe and nothing else")
     n = torch.cuda.device_count() if dev.type == "cuda" else 1
     t0 = time.perf_counter()
     entry_mod.dryrun_multichip(n, device=dev)
@@ -4068,7 +4234,8 @@ def held_kernels(held: list):
     summation-order bound; the block copies K6 / K7 once at each (R, W)
     too, the gather bit-exact, the scatter bit-exact where its blocks are
     disjoint and, on a row that blocks share, equal to one of its writers'
-    rows (the kernel's contract). Appends (kernel, planes, n, max |kernel -
+    rows (the kernel's contract); the bucket probe at each set of rounds,
+    slot and found bit-exact. Appends (kernel, planes, n, max |kernel -
     plain|) to `held` for each held call. Launches are the wrapped calls'
     own."""
     seen = set()
@@ -4163,15 +4330,30 @@ def held_kernels(held: list):
              [plane], base.shape[0], err)
         return plane
 
+    def probe(key_hi, key_lo, uh, ul, valid, rounds):
+        out = bucket_probe(key_hi, key_lo, uh, ul, valid, rounds)
+        if first("bucket_probe", [key_hi], uh.shape[0], (rounds,)):
+            # the plain version gathers through row_gather_multi: launches
+            # of the check, not of the harness
+            gathers = row_gather.launches
+            want = bucket_probe_plain(key_hi, key_lo, uh, ul, valid, rounds)
+            row_gather.launches = gathers
+            note("bucket_probe", [key_hi, key_lo], uh.shape[0], max(
+                max_abs_err("bucket_probe slot", out[0], want[0]),
+                max_abs_err("bucket_probe found", out[1].int(), want[1].int())))
+        return out
+
     wrap = {"row_gather": lambda plane, idx: gather_multi((plane,), idx)[0],
             "row_gather_multi": gather_multi,
             "row_scatter_set": lambda plane, idx, upd: set_multi((plane,), idx, (upd,)) or plane,
             "row_scatter_set_multi": set_multi, "row_scatter_add": scatter_add,
             "row_merge_add": merge_add, "segment_sum": seg_sum,
-            "row_block_gather": block_gather, "row_block_scatter": block_scatter}
+            "row_block_gather": block_gather, "row_block_scatter": block_scatter,
+            "bucket_probe": probe}
     orig = {k.__name__: k for k in (row_gather, row_gather_multi, row_scatter_set,
                                     row_scatter_set_multi, row_scatter_add, row_merge_add,
-                                    segment_sum, row_block_gather, row_block_scatter)}
+                                    segment_sum, row_block_gather, row_block_scatter,
+                                    bucket_probe)}
     patched = []
     for modname, mod in list(sys.modules.items()):
         if modname.startswith("meepoembedding_tpu_torch") and \
@@ -4224,17 +4406,18 @@ def harness_sizes(args, rehearse: bool) -> dict:
 
 def headline_launches(cap: int, batch: int, steps: int, rounds: int) -> dict:
     """The headline's launches, from its steps: P prefill batches (a
-    lookup_train of 2 gathers and 1 set, the update's fetch-add and values
-    add), 1 + 3 x steps dynamic cycles (the train phase's step without the
-    tower: 3 gathers, 1 set, 1 fetch-add, 3 K1), as many cycles of the
-    all-rows static arm (1 gather; the segment sum's 2 K1 and the add) and
-    of the dedup-aware arm (2 gathers, 3 K1), and 1 gather a planning
-    round (max_probe_rounds 2: one probe gather)."""
+    lookup_train of 1 probe, 1 gather and 1 set, the update's fetch-add and
+    values add), 1 + 3 x steps dynamic cycles (the train phase's step
+    without the tower: 1 probe, 2 gathers, 1 set, 1 fetch-add, 3 K1), as
+    many cycles of the all-rows static arm (1 gather; the segment sum's 2 K1
+    and the add) and of the dedup-aware arm (2 gathers, 3 K1), and 1 gather
+    a planning round."""
     n_live = int(cap * 0.8)
     P = -(-n_live // min(batch, 1 << 20, n_live))
     C = 1 + 3 * steps
-    return {"row_gather": 2 * P + 3 * C + C + 2 * C + rounds, "row_scatter_set": P + C,
-            "row_scatter_add": P + C, "row_merge_add": P + 3 * C + 3 * C + 3 * C}
+    return {"row_gather": P + 2 * C + C + 2 * C + rounds, "row_scatter_set": P + C,
+            "row_scatter_add": P + C, "row_merge_add": P + 3 * C + 3 * C + 3 * C,
+            "bucket_probe": P + C}
 
 
 def check_static_arms(seed: int) -> None:
@@ -4730,7 +4913,7 @@ def zoo_train(kind: str, table, batches, dev, card: str, seed: int) -> dict:
            "inserts": diff["inserts"], "loss_first": losses[0], "loss_last": losses[-1]}
     if dev.type == "cuda":
         want = {"row_scatter_set": 1, "row_scatter_add": 1, "row_merge_add": 3,
-                "row_gather": 4 + rounds / steps}
+                "row_gather": 2 + rounds / steps, "bucket_probe": 1}
         for name, w in want.items():
             if abs(per[name] - w) > 1e-9:
                 raise AssertionError(f"zoo {kind}: {name} launched {per[name]:.2f} times a "
@@ -4886,22 +5069,24 @@ def part_files(path) -> int:
 
 
 def restore_launches(path, batches: int, steps: int = 0) -> dict:
-    """A restore (3 sets and the probe's 2 gathers a batch) followed by
-    `batches` probe-only scoring batches (4 gathers) or `steps` train steps
-    (4 gathers, 1 set, 1 fetch-add, 3 K1)."""
+    """A restore (3 sets and 1 probe a batch) followed by `batches`
+    probe-only scoring batches (1 probe, 2 gathers) or `steps` train steps
+    (1 probe, 2 gathers, 1 set, 1 fetch-add, 3 K1)."""
     nb = restore_batches(path)
-    return {"row_scatter_set": 3 * nb + steps, "row_gather": 2 * nb + 4 * (batches + steps),
-            "row_scatter_add": steps, "row_merge_add": 3 * steps}
+    return {"row_scatter_set": 3 * nb + steps, "row_gather": 2 * (batches + steps),
+            "bucket_probe": nb + batches + steps, "row_scatter_add": steps,
+            "row_merge_add": 3 * steps}
 
 
 def bench_launches(rows: float, batch: int, steps: int, update: bool) -> dict:
-    """bench-lookup/update: the prefill's insert batches (max_probe_rounds 2:
-    one probe gather, 3 sets), then 1 + 3 x steps cycles of a lookup (one
-    probe gather, the values, the rows by the inverse; 1 set) and, to
-    update, the segment sum and the sparse update (3 K1, 1 fetch-add)."""
+    """bench-lookup/update: the prefill's insert batches (1 probe, 3 sets),
+    then 1 + 3 x steps cycles of a lookup (1 probe; 2 gathers: the values,
+    the rows by the inverse; 1 set) and, to update, the segment sum and the
+    sparse update (3 K1, 1 fetch-add)."""
     prefill = -(-int(rows * 0.8) // min(batch, 1 << 20))
     cycles = 1 + 3 * steps
-    return {"row_scatter_set": 3 * prefill + cycles, "row_gather": prefill + 3 * cycles,
+    return {"row_scatter_set": 3 * prefill + cycles, "row_gather": 2 * cycles,
+            "bucket_probe": prefill + cycles,
             "row_scatter_add": cycles if update else 0,
             "row_merge_add": 3 * cycles if update else 0}
 
@@ -4990,8 +5175,9 @@ def cli_phase(args, dev, card: str) -> dict:
                                    want["values"][o_w].view(np.int32))):
             raise AssertionError("the imported checkpoint's rows differ from the export")
         chunks = -(-rows // cli.IMPORT_CHUNK)
-        hold_launches("ckpt-import", imp, {"row_scatter_set": 3 * chunks, "row_gather": 2 * chunks
-                                           + 3 * part_files(CLI_DIR / "imported")}, dev)
+        hold_launches("ckpt-import", imp, {"row_scatter_set": 3 * chunks, "bucket_probe": chunks,
+                                           "row_gather": 3 * part_files(CLI_DIR / "imported")},
+                      dev)
         for what, r in (("ckpt-inspect", ins), ("ckpt-export", exp)):
             hold_launches(what, r, {}, dev)
         for r in (ins, exp, imp):
@@ -5177,6 +5363,7 @@ def run_phases(args) -> int:
     check_add_kernels(CHECK_ROWS_LOG2, args.seed)
     check_segment_sum(args.seed)
     check_train_parity(args.seed)
+    probe_timings = time_bucket_probe(args.seed)
     log(f"kernels: checks passed in {time.perf_counter() - t0:.1f} s")
 
     # each path runs with the launch counters set to 0 just before it
@@ -5205,8 +5392,9 @@ def run_phases(args) -> int:
         q8 = int8(args, res, cuda, card)
         int8_counts = launches()
         log(f"int8: path finished in {time.perf_counter() - t0:.1f} s; launches {int8_counts}")
+        # bucket_probe: the f32 service's scores that the int8 ones are held to
         if int8_counts["row_gather"] <= 0 or any(int8_counts[k] for k in int8_counts
-                                                 if k != "row_gather"):
+                                                 if k not in ("row_gather", "bucket_probe")):
             raise AssertionError(f"int8 serving must launch row_gather and nothing else: "
                                  f"{int8_counts}")
 
@@ -5260,24 +5448,25 @@ def run_phases(args) -> int:
     # fetch-add (the rowwise accumulator) and three K1 launches (the
     # unique-row values update; the segment sum's walk and combine pass) a
     # step
-    for name, want in (("row_scatter_set", 1), ("row_scatter_add", 1), ("row_merge_add", 3)):
+    for name, want in (("row_scatter_set", 1), ("row_scatter_add", 1), ("row_merge_add", 3),
+                       ("bucket_probe", 1)):
         if train_counts[name] != want * steps:
             raise AssertionError(f"the train step launched {name} "
                                  f"{train_counts[name] / steps:.2f} times, not {want}")
-    # gathers: the probe's 2 round groups, the values read and the rows by
-    # the inverse, plus one a planning round; none of the accumulator
+    # gathers: the values read and the rows by the inverse, plus one a
+    # planning round; none of the accumulator
     rounds = plan_rounds()
     max_rounds = tres["trainer"].spec.max_probe_rounds
     log(f"train: row_gather {train_counts['row_gather'] / steps:.2f} a step, insert planning "
         f"{rounds / steps:.2f} rounds a step")
-    if (train_counts["row_gather"] != 4 * steps + rounds
+    if (train_counts["row_gather"] != 2 * steps + rounds
             or not 0 <= rounds <= max_rounds * steps):
         raise AssertionError(f"the train steps launched row_gather {train_counts['row_gather']} "
-                             f"times in {steps} steps of {rounds} planning rounds, not 4 a step "
+                             f"times in {steps} steps of {rounds} planning rounds, not 2 a step "
                              f"+ 1 a round (at most {max_rounds} rounds a step)")
 
     profile_train(tres["trainer"], tres["spare"][:4])
-    timings = time_kernels(res["svc"], res["requests"], args.seed)
+    timings = probe_timings + time_kernels(res["svc"], res["requests"], args.seed)
     timings += time_int8_kernels(q8["svc"].table, q8["requests"])
     run_profiled("int8 score", lambda: [q8["svc"].score(d, r) for d, r in q8["requests"][:8]],
                  8, "request")
@@ -5388,9 +5577,11 @@ def run_phases(args) -> int:
                             "meepoembedding_tpu/table/pallas_ops.py:187"),
         "row_merge_add": ("meepoembedding_tpu_torch/csrc/row_merge_add.cu",
                           "meepoembedding_tpu/table/stream_merge.py:61"),
+        "bucket_probe": ("meepoembedding_tpu_torch/csrc/bucket_probe.cu",
+                         "none: meepoembedding_tpu/table/xla_ops.py:59 `probe` is XLA code"),
     }
     keys = ("label", "shape", "ms", "device_ms", "kernel_ms", "plain_ms", "bound_ms",
-            "sector_bound_ms", "library_ms", "max_abs_err")
+            "sector_bound_ms", "library_ms", "max_abs_err", "host_us", "resolved_share")
     kernels = []
     for name, (source, replaces) in meta.items():
         mine = [t for n, t in timings if n == name]

@@ -9,9 +9,15 @@ plain integer attribute of its main wrapper, `<wrapper>.launches`
 `row_scatter_set_multi` in `row_scatter_set.launches`, `row_gather_multi`
 in `row_gather.launches`). `row_block_copy` holds the random-row block
 gather and scatter of the DMA probe (`row_block_gather.launches`,
-`row_block_scatter.launches`).
+`row_block_scatter.launches`). `bucket_probe` is the table's whole probe,
+the hash, every round and the first-lane match, in one launch
+(`bucket_probe.launches`; its plain version `bucket_probe_plain`).
 """
 
+from meepoembedding_tpu_torch.kernels.bucket_probe import (  # noqa: F401
+    bucket_probe,
+    bucket_probe_plain,
+)
 from meepoembedding_tpu_torch.kernels.row_block_copy import (  # noqa: F401
     row_block_gather,
     row_block_gather_plain,

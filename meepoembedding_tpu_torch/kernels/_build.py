@@ -22,7 +22,7 @@ from pathlib import Path
 import torch
 
 KERNELS = ("row_gather", "row_scatter_set", "row_scatter_add", "row_merge_add",
-           "row_block_copy")
+           "row_block_copy", "bucket_probe")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (

@@ -1,8 +1,9 @@
 """Table storage ops on tensors (port of `meepoembedding_tpu/table/xla_ops.py`:
 the serving, training and lifecycle paths).
 
-  probe              XOR pair-probing: one row gather of both key planes,
-                     viewed as [nb/2, 256] bucket pairs, per two rounds.
+  probe              XOR pair-probing through `kernels.bucket_probe`: the
+                     hash, every round and the first-lane match in one
+                     launch on the card.
   plan_insert        collision-free free-lane assignment for missed keys,
                      round by round, with the reference's exact slot choice.
   insert_rows        bulk upsert (restore, `table.assign`): probe, plan, then
@@ -18,9 +19,10 @@ the serving, training and lifecycle paths).
   erase_keys         explicit key removal.
   check_invariants   the debug scan of a shard's invariants.
 
-Every row gather goes through `kernels.row_gather_multi` and every row set
-through `kernels.row_scatter_set_multi` (the planes that share an index in
-one launch), every bucket-plane add through `kernels.row_scatter_add` (a
+Every probe goes through `kernels.bucket_probe`, every row gather through
+`kernels.row_gather_multi` and every row set through
+`kernels.row_scatter_set_multi` (the planes that share an index in one
+launch), every bucket-plane add through `kernels.row_scatter_add` (a
 fetch-add where the caller needs the old values) and every values-plane add
 through `kernels.row_merge_add` on unique rows; on CPU tensors those take
 their plain versions. Shards are updated in place.
@@ -42,11 +44,13 @@ import torch
 
 from meepoembedding_tpu_torch.config import LANES
 from meepoembedding_tpu_torch.kernels import (
+    bucket_probe,
     row_gather_multi,
     row_merge_add,
     row_scatter_add,
     row_scatter_set_multi,
 )
+from meepoembedding_tpu_torch.kernels.bucket_probe import first_true
 from meepoembedding_tpu_torch.table import hashing
 from meepoembedding_tpu_torch.table.layout import (
     DENIED,
@@ -74,46 +78,13 @@ class InsertPlan(NamedTuple):
     ovf: torch.Tensor  # updated [nb]
 
 
-def _first_true(m: torch.Tensor) -> torch.Tensor:
-    """Per row, the first True lane of a [n, 128] mask (0 if none), as the
-    reference's `argmax` over booleans gives it."""
-    return torch.argmax(m.to(torch.uint8), dim=1).to(torch.int32)
-
-
 @spanned("meepo.table.probe")
 def probe(spec: TableSpec, shard: TableShard, uh, ul, valid) -> ProbeResult:
     """Find the slots of (deduped) keys in `max_probe_rounds` rounds of
-    bucketized XOR probing (b0 ^ r). Rounds 2g and 2g+1 share one aligned
-    bucket pair, so one launch that gathers [n, 256] rows of both key
-    planes serves two rounds."""
-    nb = spec.num_buckets
-    b0 = hashing.bucket_of(uh, ul, nb)
-    n = uh.shape[0]
-    rounds = min(spec.max_probe_rounds, nb)
-    slot = torch.full((n,), -1, dtype=torch.int32, device=uh.device)
-    found = torch.zeros((n,), dtype=torch.bool, device=uh.device)
-    if nb == 1:
-        m = (shard.key_hi[0][None, :] == uh[:, None]) & (shard.key_lo[0][None, :] == ul[:, None])
-        hit = m.any(dim=1) & valid
-        return ProbeResult(torch.where(hit, _first_true(m), -1), hit)
-    hi_pair = shard.key_hi.view(nb // 2, 2 * LANES)
-    lo_pair = shard.key_lo.view(nb // 2, 2 * LANES)
-    p0 = b0 >> 1
-    uh_c, ul_c = uh[:, None], ul[:, None]
-    for g in range((rounds + 1) // 2):
-        # an odd `rounds` probes one extra bucket: harmless, nothing is ever
-        # stored beyond a key's insert rounds
-        pg = p0 ^ g
-        row_h, row_l = row_gather_multi((hi_pair, lo_pair), pg)
-        m_e = (row_h[:, :LANES] == uh_c) & (row_l[:, :LANES] == ul_c)
-        m_o = (row_h[:, LANES:] == uh_c) & (row_l[:, LANES:] == ul_c)
-        hit_e = m_e.any(dim=1) & valid
-        hit_o = m_o.any(dim=1) & valid
-        slot_g = torch.where(hit_e, pg * (2 * LANES) + _first_true(m_e),
-                             (pg * 2 + 1) * LANES + _first_true(m_o))
-        hit = hit_e | hit_o
-        slot = torch.where(hit & ~found, slot_g, slot)
-        found = found | hit
+    bucketized XOR probing (b0 ^ r): one `bucket_probe` call, the hash,
+    every round and the first-lane match in one launch on the card."""
+    slot, found = bucket_probe(shard.key_hi, shard.key_lo, uh, ul, valid,
+                               spec.max_probe_rounds)
     return ProbeResult(slot=slot, found=found)
 
 
@@ -160,7 +131,7 @@ def _plan_insert_impl(spec: TableSpec, shard: TableShard, uh, ul, want):
             num_free = cum[:, -1]
             eff_rank = rank + claimed[b.long()]
             islane = free & (cum == (eff_rank + 1).clamp(1, LANES)[:, None])
-            lane = _first_true(islane)
+            lane = first_true(islane)
             ok = pending & (eff_rank < num_free)
             fail = pending & ~ok
             slot = torch.where(ok, b * LANES + lane, slot)

@@ -239,9 +239,10 @@ def test_chip_smoke_holds_every_harness_kernel_call(monkeypatch):
     with smoke.held_kernels(held):
         headline.run(device="cpu", cap=1 << 12, batch=256, steps=2)
     assert {k for k, *_ in held} == {"row_gather", "row_scatter_set", "row_scatter_add",
-                                     "row_merge_add", "segment_sum"}
+                                     "row_merge_add", "segment_sum", "bucket_probe"}
     assert all(err == 0.0 for *_, err in held)
     assert table_ops.row_merge_add is kernels.row_merge_add
+    assert table_ops.bucket_probe is kernels.bucket_probe
     plane, rows = torch.zeros(8, 4), torch.ones(2, 4)
     with pytest.raises(AssertionError, match="repeated rows"), smoke.held_kernels([]):
         table_ops.scatter_add_values(plane, torch.tensor([3, 3]), rows, torch.tensor([True, True]))

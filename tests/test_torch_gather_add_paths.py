@@ -10,7 +10,8 @@ plain versions and the callers' use of them:
   `row_scatter_add` in interpret mode, int32 (wrapping) and f32: the plane
   bit-exact (one add an element in both), `old` equal to the Pallas
   `row_gather` of the kept rows and 0 on dropped rows;
-- the callers: `probe` gathers both key planes in one call a round group,
+- the callers: `probe` (on the CPU, `bucket_probe_plain`) gathers both key
+  planes in one call a round group,
   `plan_insert` in one call a round (counted by its `meepo.table.plan_round`
   spans under the profiler), and
   a Trainer step adds to the rowwise accumulator in one fetch-add with no
@@ -18,6 +19,8 @@ plain versions and the callers' use of them:
 
 The CUDA kernels are held against these plain versions on the card by
 `test_torch_gpu.py`."""
+
+import importlib
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -36,6 +39,10 @@ from meepoembedding_tpu_torch.kernels import (
 )
 from meepoembedding_tpu_torch.table import layout as tl
 from meepoembedding_tpu_torch.table import table_ops as tx
+
+# the module of the probe's plain version, whose gathers the spies count
+# (the package's `bucket_probe` attribute is the wrapper function)
+bp = importlib.import_module("meepoembedding_tpu_torch.kernels.bucket_probe")
 
 torch.set_num_threads(1)
 
@@ -162,7 +169,7 @@ def _keys(seed: int, n: int):
 @pytest.mark.parametrize("rounds", [3, 4])
 def test_probe_gathers_both_key_planes_once_a_round_group(monkeypatch, rounds):
     spy = _Spy(row_gather_multi)
-    monkeypatch.setattr(tx, "row_gather_multi", spy)
+    monkeypatch.setattr(bp, "row_gather_multi", spy)
     spec = tl.TableSpec.from_config(TableConfig(dim=8, capacity=32 * 128,
                                                 max_probe_rounds=rounds))
     shard = tl.alloc_shard(spec, "cpu")
@@ -210,6 +217,7 @@ def test_train_step_fetch_adds_the_accumulator_without_a_gather(monkeypatch):
     adds, gathers = _Spy(tx.row_scatter_add), _Spy(row_gather_multi)
     monkeypatch.setattr(tx, "row_scatter_add", adds)
     monkeypatch.setattr(tx, "row_gather_multi", gathers)
+    monkeypatch.setattr(bp, "row_gather_multi", gathers)
     mc = ModelConfig(num_dense_features=4, num_sparse_features=3, embedding_dim=8,
                      bottom_mlp=(16, 8), top_mlp=(16, 1))
     tr = Trainer(RunConfig(batch_size=64), TableConfig(dim=8, capacity=1 << 12), mc,
