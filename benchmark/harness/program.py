@@ -4,6 +4,8 @@ cell runners and `instrument.py` import the port."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -17,12 +19,17 @@ from meepoembedding_tpu_torch.config import (
 from meepoembedding_tpu_torch.table import hashing, table_ops
 
 
+# the port's padding id, which fills a bag past its length
+PAD_ID = int(hashing.EMPTY_ID)
+
+
 def model_config(cfg: dict) -> ModelConfig:
-    m = cfg["model"]
-    return ModelConfig(kind=m["kind"], num_dense_features=m["num_dense_features"],
-                       num_sparse_features=m["num_sparse_features"],
-                       embedding_dim=m["embedding_dim"], bottom_mlp=tuple(m["bottom_mlp"]),
-                       top_mlp=tuple(m["top_mlp"]), dtype=m["dtype"])
+    """The port's model settings: every key of the configuration's `model`
+    that is a field of `ModelConfig`, lists as tuples. Other keys (such as
+    `interaction`, `top_mlp_input`) are the benchmark's own."""
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    return ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in cfg["model"].items() if k in fields})
 
 
 def table_config(cfg: dict) -> TableConfig:

@@ -15,6 +15,7 @@ window's close no further request starts; the backlog left is logged.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import os
 import shutil
 import sys
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from harness import fill, program, seeds, spec
-from harness.traffic import ServeSchedule
+from harness.traffic import Bags, ServeSchedule, valid_ids
 from harness.weights import tower_leaves
 
 SAMPLE_REQUESTS = 48
@@ -42,7 +43,7 @@ class ServeCell:
         cfg = self.cfg = cell.config
         tc, mc = program.table_config(cfg), program.model_config(cfg)
         dim = cfg["model"]["embedding_dim"]
-        leaves = [x.cpu().numpy() for x in tower_leaves(cfg["model"], seed, self.device)]
+        leaves = [x.cpu().numpy() for x in tower_leaves(cfg, seed, self.device)]
         # a checkpoint of the tower and 4 rows; the fill overwrites the rows
         tiny = TableSpec.from_config(program.table_config({**cfg, "table": {
             **cfg["table"], "capacity": 1024}}))
@@ -57,20 +58,35 @@ class ServeCell:
             self.svc = ScoringService(path, tc, mc, device=self.device)
         finally:
             shutil.rmtree(path, ignore_errors=True)
+        # bags go to `score` padded, and their lengths too where it takes a
+        # parameter `lengths`, as the feed names them
+        self.takes_lengths = "lengths" in inspect.signature(self.svc.score).parameters
+        if "multi_hot_sizes" in cfg:
+            print(f"serve: bags go to score padded, "
+                  f"{'with' if self.takes_lengths else 'without'} their lengths",
+                  file=sys.stderr, flush=True)
         self.vocab = int(sum(cfg["cardinalities"]))
         self.landed = fill.fill(lambda i, r: int(self.svc.table.assign(i, r).sum()),
                                 cfg["cardinalities"], dim, cfg["fill"]["row_scale"], seed,
                                 self.device)
         self.sched = ServeSchedule(cfg["cardinalities"], cell.mix,
-                                   cfg["model"]["num_dense_features"], seconds, seed)
+                                   cfg["model"]["num_dense_features"], seconds, seed,
+                                   Bags.of(cfg, program.PAD_ID))
         self.warm()
 
     def warm(self) -> None:
         lo, hi = self.cell.mix["candidates_min"], self.cell.mix["candidates_max"]
         sizes = sorted({int(x) for x in np.geomspace(lo, hi, 12)})
+        s = self.sched
         for n in sizes:
             for _ in range(2):
-                self.svc.score(self.sched.dense[:n], self.sched.ids[:n])
+                self.score(s.dense[:n], s.ids[:n], None if s.lengths is None else s.lengths[:n])
+
+    def score(self, dense, ids, lengths=None):
+        """The service's scores of one request's inputs."""
+        if lengths is not None and self.takes_lengths:
+            return self.svc.score(dense, ids, lengths=lengths)
+        return self.svc.score(dense, ids)
 
     def window(self, seconds: float, annotate=None) -> dict:
         """Serve the requests in order, each at its due time or when the one
@@ -91,10 +107,9 @@ class ServeCell:
             if time.perf_counter() >= close:
                 break
             started += 1
-            dense, ids = s.inputs(i)
             try:
                 with ann("bench.serve"):
-                    p = self.svc.score(dense, ids)
+                    p = self.score(*s.inputs(i))
             except Exception as e:  # a failed request is counted, not fatal
                 if not failed:
                     print(f"request {i} failed: {e!r}", file=sys.stderr, flush=True)
@@ -129,11 +144,12 @@ class ServeCell:
 
 
 def reference_scores(cfg: dict, seed: int, inputs, device, kind: str = "float32") -> list:
-    """The reference's scores of each (dense, ids) request: the fill's rows
-    for vocabulary ids, zero rows for unknown ones."""
+    """The reference's scores of each request's inputs (dense, ids[,
+    lengths]): the fill's rows for vocabulary ids, zero rows for unknown
+    ones; a request of bags goes to it as its ragged rows and lengths."""
     cards, dim = cfg["cardinalities"], cfg["model"]["embedding_dim"]
-    leaves = tower_leaves(cfg["model"], seed, device)
-    all_ids = np.unique(np.concatenate([ids.reshape(-1) for _, ids in inputs]))
+    leaves = tower_leaves(cfg, seed, device)
+    all_ids = np.unique(np.concatenate([valid_ids(*req[1:]) for req in inputs]))
     pos = fill.positions_of_ids(all_ids, cards)
     rows = torch.zeros((len(all_ids), dim), device=device)
     known = pos >= 0
@@ -141,11 +157,11 @@ def reference_scores(cfg: dict, seed: int, inputs, device, kind: str = "float32"
         pos[known], cards, dim, cfg["fill"]["row_scale"], seed, device)
     ref, out = spec.reference(cfg), []
     with ref.precision(kind):
-        for dense, ids in inputs:
-            at = torch.from_numpy(np.searchsorted(all_ids, ids.reshape(-1))).to(device)
-            emb = rows[at].view(ids.shape[0], ids.shape[1], dim)
+        for dense, ids, *lengths in inputs:
+            at = torch.from_numpy(np.searchsorted(all_ids, valid_ids(ids, *lengths))).to(device)
+            emb = rows[at] if lengths else rows[at].view(ids.shape[0], ids.shape[1], dim)
             out.append(ref.score(cfg["model"], leaves, torch.as_tensor(dense, device=device),
-                                 emb).cpu().numpy())
+                                 emb, *lengths).cpu().numpy())
     return out
 
 

@@ -9,7 +9,13 @@
                                            names under `reference`
 
 A later cell, mix, configuration or metric is a new file and a new entry;
-no code here names one.
+no code here names one. Nor does any name a model kind: the configuration's
+`model` keys that are fields of the port's `ModelConfig` go to the port
+(`program.model_config`); its reference module gives the tower's leaves
+(`leaf_specs`), its multiply-adds (`macs_per_example`), and the plain
+model the check runs (`reference/__init__.py`); its `multi_hot_sizes` and
+`multi_hot_distribution`, if given, make the traffic's features fixed-size
+bags (`traffic.Bags`).
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ import torch
 
 from harness import check, fill, program
 from harness.spec import reference
-from harness.traffic import TrainFeed
+from harness.traffic import Bags, TrainFeed, valid_ids
 from harness.weights import tower_leaves
 
 REF_STEPS = 3
@@ -63,7 +63,7 @@ class TrainCell:
         batch = int(mix["batch"])
         self.trainer = Trainer(program.run_config(cfg, batch), program.table_config(cfg),
                                program.model_config(cfg), device=self.device)
-        self.leaves0 = tower_leaves(cfg["model"], seed, self.device)
+        self.leaves0 = tower_leaves(cfg, seed, self.device)
         from_jax_params(self.trainer.model, [x.cpu().numpy() for x in self.leaves0])
         table = DynamicEmbeddingTable(program.table_config(cfg), device=self.device,
                                       shard=self.trainer.shard)
@@ -72,7 +72,7 @@ class TrainCell:
                                 cfg["cardinalities"], cfg["model"]["embedding_dim"],
                                 cfg["fill"]["row_scale"], seed, self.device)
         self.feed = TrainFeed(cfg["cardinalities"], mix, cfg["model"]["num_dense_features"],
-                              seed)
+                              seed, Bags.of(cfg, program.PAD_ID))
         self.failed = 0
 
     def _sync(self):
@@ -90,8 +90,9 @@ class TrainCell:
         tr, spec = self.trainer, self.trainer.spec
         opt = self.cfg["table"]["optimizer"]
         batches = [self.feed.next() for _ in range(REF_STEPS)]
-        all_ids = np.unique(np.concatenate([b["ids"].reshape(-1) for b in batches]))
-        ids1 = np.unique(batches[0]["ids"])
+        valid = [valid_ids(b["ids"], b.get("lengths")) for b in batches]
+        all_ids = np.unique(np.concatenate(valid))
+        ids1 = np.unique(valid[0])
         w0, _, found0 = program.read_rows(spec, tr.shard, all_ids)
         init = torch.from_numpy(reference(self.cfg).init_rows(all_ids, spec.dim,
                                               self.cfg["table"]["initializer_scale"]))
@@ -139,8 +140,11 @@ class TrainCell:
 
 
 def reference_readings(cfg: dict, seed: int, batches, device, kind: str = "float32") -> dict:
-    """The reference's readings of the same steps, in `kind` precision."""
-    leaves = tower_leaves(cfg["model"], seed, device)
+    """The reference's readings of the same steps, in `kind` precision; a
+    batch of bags goes to it as its ragged ids and lengths."""
+    leaves = tower_leaves(cfg, seed, device)
+    batches = [{**b, "ids": valid_ids(b["ids"], b["lengths"])} if "lengths" in b else b
+               for b in batches]
     out = reference(cfg).train(cfg["model"], cfg["table"], cfg["dense_optimizer"], leaves, batches,
                     start_rows(cfg, seed, device), device, kind=kind)
     return {"losses": out["losses"],

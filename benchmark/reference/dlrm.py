@@ -6,7 +6,14 @@ dot products of every pair of the F = sparse + 1 feature vectors (the bottom
 output and the embeddings), their upper triangle in the row-major order of
 `np.triu_indices(F, 1)` beside the bottom output; top MLP with ReLU after
 every layer but the last; a logit. Loss: binary cross-entropy on the logit,
-the batch mean. Weights are the JAX layout's leaves (W [in, out], b [out]).
+the batch mean. Weights are the JAX layout's leaves (W [in, out], b [out]),
+drawn as `leaf_specs` says; `macs_per_example` counts the model's work.
+
+Multi-hot bags come as ragged rows, bag by bag in the row-major order of
+[B, S], with their lengths [B, S]; `pool` sums each bag's rows with
+`index_add_` (facebookresearch/dlrm's `EmbeddingBag(mode="sum")`), or takes
+their mean or sum over the root of the count, as the model's `combiner`
+says. No padded [B, S, L, D] tensor is made.
 
 The table, as a dictionary of rows: an id of the vocabulary reads the row
 the fill gave it; a first sighting is admitted and starts at the table's
@@ -24,7 +31,7 @@ below the configuration's float32.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, List, Sequence
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +79,62 @@ def precision(kind: str):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
+def layer_shapes(model: dict) -> List[Tuple[int, int]]:
+    """(in, out) of every linear layer, bottom MLP first, as the widths of
+    `model` give them; the top MLP's input is the bottom output beside the
+    upper triangle of the dot interaction of F = sparse + 1 features."""
+    shapes, d = [], model["num_dense_features"]
+    for h in model["bottom_mlp"]:
+        shapes.append((d, h))
+        d = h
+    f = model["num_sparse_features"] + 1
+    d = model["embedding_dim"] + f * (f - 1) // 2
+    for h in model["top_mlp"]:
+        shapes.append((d, h))
+        d = h
+    return shapes
+
+
+def leaf_specs(model: dict) -> List[Tuple[Tuple[int, ...], float]]:
+    """(shape, std) of every leaf in the JAX layout's order, which the port's
+    `weights.from_jax_params` takes: for each layer of the bottom MLP and
+    then of the top MLP, W [in, out] ~ N(0, 2 / (in + out)) and b [out] ~
+    N(0, 1 / out), the published model's init (facebookresearch/dlrm,
+    `dlrm_s_pytorch.py` `create_mlp`)."""
+    out = []
+    for i, o in layer_shapes(model):
+        out += [((i, o), (2.0 / (i + o)) ** 0.5), ((o,), (1.0 / o) ** 0.5)]
+    return out
+
+
+def macs_per_example(model: dict) -> int:
+    """Multiply-adds of one example's forward pass: every linear layer, and
+    the dot interaction as the [F, D] x [D, F] product it is computed as
+    (F = sparse + 1)."""
+    f, d = model["num_sparse_features"] + 1, model["embedding_dim"]
+    return sum(i * o for i, o in layer_shapes(model)) + f * f * d
+
+
+def pool(rows: torch.Tensor, lengths, combiner: str) -> torch.Tensor:
+    """Ragged rows [n, D] of the bags in the row-major order of `lengths`
+    [B, S] (an array or a tensor) -> pooled [B, S, D]; an empty bag pools
+    to zeros."""
+    lengths = torch.as_tensor(lengths)
+    B, S = lengths.shape
+    lens = lengths.reshape(-1).to(device=rows.device, dtype=torch.int64)
+    bag = torch.repeat_interleave(torch.arange(B * S, device=rows.device), lens)
+    out = torch.zeros((B * S, rows.shape[1]), dtype=rows.dtype, device=rows.device)
+    out = out.index_add(0, bag, rows)
+    cnt = lens.clamp(min=1).to(rows.dtype)[:, None]
+    if combiner == "mean":
+        out = out / cnt
+    elif combiner == "sqrtn":
+        out = out / torch.sqrt(cnt)
+    elif combiner != "sum":
+        raise ValueError(f"combiner {combiner!r}")
+    return out.view(B, S, -1)
+
+
 def forward(model: dict, leaves: Sequence[torch.Tensor], dense: torch.Tensor,
             emb: torch.Tensor) -> torch.Tensor:
     """dense [B, ND], emb [B, S, D] -> logits [B]."""
@@ -98,8 +161,13 @@ def bce(logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.clamp(z, min=0) - z * label + torch.log1p(torch.exp(-z.abs())))
 
 
-def score(model: dict, leaves, dense: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+def score(model: dict, leaves, dense: torch.Tensor, emb: torch.Tensor,
+          lengths=None) -> torch.Tensor:
+    """Probabilities [B]; emb: one-hot rows [B, S, D], or with `lengths`
+    [B, S] the bags' ragged rows [n, D]."""
     with torch.no_grad():
+        if lengths is not None:
+            emb = pool(emb, lengths, model["combiner"])
         return torch.sigmoid(forward(model, leaves, dense, emb))
 
 
@@ -119,10 +187,11 @@ def train(model: dict, table: dict, dense_opt: dict, leaves0: Sequence[torch.Ten
           device, kind: str = "float32") -> dict:
     """Run the batches' steps from `leaves0` and the table's rows as
     `start_rows(ids)` gives them (fill rows, or the init of first
-    sightings). Returns the losses, the first step's gradients (per leaf,
-    the table's as its rows of that step's ids) and every leaf's change
-    after the last step (the table's over every id the steps touched), with
-    the ids they belong to."""
+    sightings). A batch's `ids` are one-hot [B, S], or with `lengths` [B, S]
+    its bags' ragged ids. Returns the losses, the first step's gradients
+    (per leaf, the table's as its rows of that step's ids) and every leaf's
+    change after the last step (the table's over every id the steps
+    touched), with the ids they belong to."""
     opt = table["optimizer"]
     all_ids = np.unique(np.concatenate([np.asarray(b["ids"]).reshape(-1) for b in batches]))
     rows0 = start_rows(all_ids).to(device=device, dtype=torch.float32)
@@ -139,7 +208,10 @@ def train(model: dict, table: dict, dense_opt: dict, leaves0: Sequence[torch.Ten
             idx = torch.from_numpy(np.searchsorted(all_ids, ids.reshape(-1))).to(device)
             r = rows.clone().requires_grad_(True)
             lv = [x.clone().requires_grad_(True) for x in leaves]
-            emb = r[idx].view(ids.shape[0], ids.shape[1], dim)
+            if b.get("lengths") is None:
+                emb = r[idx].view(ids.shape[0], ids.shape[1], dim)
+            else:
+                emb = pool(r[idx], b["lengths"], model["combiner"])
             dense = torch.as_tensor(b["dense"], device=device)
             label = torch.as_tensor(b["label"], device=device)
             loss = bce(forward(model, lv, dense, emb), label)

@@ -134,12 +134,13 @@ def run_train(cell, seed: int, seconds: float, traced: bool, dev) -> dict:
     res = {}
     if traced:
         w, tl = profiled(lambda: tc.window(seconds), instrument.annotate)
-        feed, model = tc.feed, cell.config["model"]
+        feed, cfg = tc.feed, cell.config
         nbytes = [work.table_step_bytes(feed.ids_per_batch, feed.unique_per_step(s),
-                                        feed.fresh_per_step(s), model["embedding_dim"])
+                                        feed.fresh_per_step(s), cfg["model"]["embedding_dim"],
+                                        n_bags=feed.bags_per_batch)
                   for s in range(w["first_step"], w["first_step"] + w["steps"])]
         reading = Reading(tl, w["steps"], torch_kind(),
-                          flops_per_unit=work.train_flops_per_example(model) * cell.mix["batch"],
+                          flops_per_unit=work.train_flops_per_example(cfg) * cell.mix["batch"],
                           table_bytes_per_unit=sum(nbytes) / len(nbytes))
         res["metrics"] = per_layer(cell, reading)
         res["timeline"] = tl

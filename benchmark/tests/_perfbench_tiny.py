@@ -34,3 +34,18 @@ def tiny_cell(workload: str):
     else:
         cell.mix.update(candidates_min=8, candidates_max=32, pool_candidates=512)
     return cell
+
+
+# MLPerf DLRM-DCNv2's ids a feature (mlcommons/training recommendation_v2/
+# torchrec_dlrm, --multi_hot_sizes): 214 an example, made by its
+# --multi_hot_distribution_type uniform
+DCNV2_SIZES = [3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100, 27, 10, 3, 1, 1]
+
+
+def bag_cell(workload: str):
+    """`tiny_cell(workload)` with DLRM-DCNv2's multi-hot bags, pooled by sum."""
+    cell = tiny_cell(workload)
+    cell.config["multi_hot_sizes"] = list(DCNV2_SIZES)
+    cell.config["multi_hot_distribution"] = "uniform"
+    cell.config["model"]["combiner"] = "sum"
+    return cell
