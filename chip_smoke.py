@@ -29,7 +29,12 @@ Phases (any failure exits non-zero and prints no result line):
            <= S updates (the kernel's segment size) bit-exact against the
            input-order sum, all runs within the order bound, the same bits
            on two calls and with the wrapper's own sort; under
-           unique-capacity overflow too. Then 3
+           unique-capacity overflow too. The bag pool (segment_sum_gather,
+           `check_segment_sum_gather`) at MLPerf DLRM-DCNv2's training
+           shapes, forward and backward: two calls equal, runs of <= 2
+           segments bit-exact against the plain version, the rest within
+           the order bound, 4 launches a GatherRows forward and backward,
+           and its times against the bytes bound. Then 3
            training steps on a 2^16-slot table on the card and on the CPU
            from one state: key, freq, last, cnt, ovf and counters equal;
            values, accumulators and loss within rtol 1e-5 / atol 1e-6;
@@ -962,6 +967,115 @@ def check_segment_sum(seed: int) -> None:
         err = within_order_bound(got, want, bound)
         log(f"check {what}; max |kernel - plain| {err} within the order bound")
     torch.cuda.empty_cache()
+
+
+# MLPerf DLRM-DCNv2's training step: 8192 examples of 26 bags of these sizes
+DCNV2_SIZES = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100, 27, 10, 3, 1, 1)
+DCNV2_BATCH, DCNV2_DIM = 8192, 128
+
+
+def check_segment_sum_gather(seed: int) -> list:
+    """segment_sum_gather, the bag pool of `dedup.GatherRows` (K1's walk and
+    combine reading rows through an index), at MLPerf DLRM-DCNv2's training
+    shapes: 8192 x 26 bags of DCNV2_SIZES ids (1,753,088 a step, each bag a
+    Zipf(1.05) head and fixed ids of it, as the benchmark's traffic makes
+    them), deduplicated at capacity n, dim 128. Forward (the unique rows
+    into the bags) and backward (the bags' gradient into the unique rows,
+    the dedup's sort): the same bits on two calls, bit for bit equal to the
+    plain version on the CPU on every output row whose run touches at most
+    two segments, the others within the summation-order bound. One
+    GatherRows forward and backward with the counters set to 0 just before
+    launches 4 row_merge_add and nothing else. Returns the two timing
+    records; the bounds read each id's 12 bytes of index, each distinct
+    source row once and write every output row (the backward's [n, 128]
+    output whole: the rows past the unique count are the memset's)."""
+    from meepoembedding_tpu_torch.kernels import segment_sum_gather
+    from meepoembedding_tpu_torch.ops import pooling
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 29)
+    g = torch.Generator(device=dev).manual_seed(seed + 29)
+    B, D, S = DCNV2_BATCH, DCNV2_DIM, segment_size()
+    cards = json.loads((ROOT / "benchmark" / "configs" / "dlrm-dcnv2.json").read_text())[
+        "cardinalities"]
+    cols = []
+    for f, (size, card) in enumerate(zip(DCNV2_SIZES, cards)):
+        head = (rng.zipf(1.05, B) - 1) % card
+        rest = (head[:, None] * 0x9E3779B1 + np.arange(1, size) * 0x85EBCA6B + f) % card
+        cols.append((np.int64(f) << 44) | np.concatenate([head[:, None], rest], axis=1))
+    ids = torch.from_numpy(np.concatenate(cols, axis=1).reshape(-1)).to(dev)
+    n, nb = ids.shape[0], B * len(DCNV2_SIZES)
+    lengths = torch.tensor(DCNV2_SIZES, dtype=torch.int32).repeat(B, 1)
+    bags = pooling.bags_on(lengths, n, dev, "sum")
+    u = dedup.unique_pairs(*hashing.split_ids_t(ids), n)
+    cap, U = u.hi.shape[0], int(u.valid.sum())
+    inv64 = u.inverse.long()
+    bag_sorted = bags.of.long().index_select(0, u.order)
+
+    def touches_two(starts, counts):
+        """Runs from `starts` of `counts` positions: which touch <= 2 segments
+        (an empty run, a row left at the memset's zero, touches none)."""
+        return (counts == 0) | ((starts + counts - 1) // S - starts // S <= 1)
+
+    starts = torch.cumsum(lengths.reshape(-1).long(), 0) - lengths.reshape(-1).long()
+    bag_exact = touches_two(starts, lengths.reshape(-1).long()).to(dev)
+    runs = torch.bincount(inv64, minlength=cap)
+    row_exact = touches_two(torch.cumsum(runs, 0) - runs, runs)
+    cases = (
+        ("forward: the unique rows pooled into the bags", inv64, bags.of, nb, bag_exact,
+         lambda: torch.randn((cap, D), device=dev, generator=g) * 0.05, U),
+        ("backward: the bags' gradient into the unique rows", bag_sorted, u.sorted_ids, cap,
+         row_exact, lambda: torch.randn((nb, D), device=dev, generator=g) * 1e-3, nb),
+    )
+    out = []
+    for label, order, srows, rows, exact, make, distinct in cases:
+        srcs = [make() for _ in range(2)]
+        got = segment_sum_gather(srcs[0], order, srows, rows)
+        again = segment_sum_gather(srcs[0], order, srows, rows)
+        want = segment_sum_gather(srcs[0].cpu(), order.cpu(), srows.cpu(), rows).to(dev)
+        torch.cuda.synchronize()
+        if not torch.equal(_bits(got), _bits(again)):
+            raise AssertionError(f"segment_sum_gather {label}: two calls gave different bits")
+        if not torch.equal(_bits(got[exact]), _bits(want[exact])):
+            raise AssertionError(f"segment_sum_gather {label}: runs touching <= 2 segments "
+                                 f"differ from the plain version")
+        err = within_order_bound(got, want, order_bound(
+            torch.zeros_like(got), srows, srcs[0].index_select(0, order)))
+        log(f"check segment_sum_gather {label}: n={n}, {nb} bags, {U} unique ids, S={S}; "
+            f"{int(exact.sum())} of {rows} rows bit-exact, the rest within the order bound "
+            f"(max |kernel - plain| {err})")
+        o32 = order.to(torch.int32)
+        out.append(("row_merge_add", entry(
+            f"DLRM-DCNv2 bag pool {label} (segment_sum_gather)",
+            f"[{srcs[0].shape[0]}, {D}] f32 through n={n} positions -> [{rows}, {D}] f32 "
+            f"({nb} bags, {U} unique ids)",
+            12 * n + 4 * D * (distinct + rows),
+            [lambda x=x: segment_sum_gather(x, order, srows, rows) for x in srcs],
+            [lambda x=x: torch.zeros((rows, D), device=dev).index_add_(
+                0, srows.long(), x.index_select(0, order)) for x in srcs],
+            [lambda x=x: segment_sum(row_gather(x, o32), srows, rows,
+                                     torch.arange(n, device=dev), srows) for x in srcs],
+            lambda: err,
+            "segment_",
+        )))
+        host_time(f"segment_sum_gather {label}",
+                  lambda: segment_sum_gather(srcs[0], order, srows, rows))
+        del srcs, got, again, want
+        torch.cuda.empty_cache()
+
+    rows_u = (torch.randn((cap, D), device=dev, generator=g) * 0.05).requires_grad_(True)
+    grad = torch.randn((nb, D), device=dev, generator=g)
+    torch.cuda.synchronize()
+    reset_launches()
+    dedup.GatherRows.apply(rows_u, u.inverse, u.order, u.sorted_ids, bags).backward(grad)
+    torch.cuda.synchronize()
+    counts = launches()
+    if counts != {**{k: 0 for k in counts}, "row_merge_add": 4}:
+        raise AssertionError(f"a bag pool's forward and backward launched {counts}, not 4 "
+                             f"row_merge_add (two kernels each) and nothing else")
+    log(f"check GatherRows bag pool forward + backward: launches {counts}")
+    log_timings(out)
+    return out
 
 
 def check_train_parity(seed: int) -> None:
@@ -5362,8 +5476,9 @@ def run_phases(args) -> int:
     check_kernels(CHECK_ROWS_LOG2, args.seed)
     check_add_kernels(CHECK_ROWS_LOG2, args.seed)
     check_segment_sum(args.seed)
+    pool_timings = check_segment_sum_gather(args.seed)
     check_train_parity(args.seed)
-    probe_timings = time_bucket_probe(args.seed)
+    probe_timings = pool_timings + time_bucket_probe(args.seed)
     log(f"kernels: checks passed in {time.perf_counter() - t0:.1f} s")
 
     # each path runs with the launch counters set to 0 just before it

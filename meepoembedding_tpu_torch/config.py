@@ -1,8 +1,18 @@
-"""Config dataclasses: a verbatim copy of `meepoembedding_tpu/config.py`.
+"""Config dataclasses: a copy of `meepoembedding_tpu/config.py`, with two
+fields of the port's own.
 
 The port keeps its own copy so that it never imports the JAX package (whose
-`__init__` pulls in jax). The two must stay field-for-field identical: the
-parity tests build both packages from the same values.
+`__init__` pulls in jax). Every field of the reference is here, the same:
+the parity tests build both packages from the same values. The port adds
+two fields to `ModelConfig`, for MLPerf DLRM-DCNv2's tower, which the JAX
+package does not have (it has no such model):
+
+  interaction       "dot" | "dcn", read by `dlrm` only: the pairwise dot
+                    products, or a low-rank cross net over
+                    [bottom output | pooled embeddings] (models/dlrm.py)
+  dcn_low_rank_dim  the cross net's rank (the source's flag name)
+
+Their defaults leave every model as the reference builds it.
 """
 
 from __future__ import annotations
@@ -155,7 +165,11 @@ class ModelConfig:
     combiner: str = "mean"
     bottom_mlp: Tuple[int, ...] = (128, 64, 32)
     top_mlp: Tuple[int, ...] = (256, 128, 1)
-    num_cross_layers: int = 3  # dcn only
+    num_cross_layers: int = 3  # dcn, and dlrm with interaction="dcn"
+    # the port's own (the module's docstring): dlrm's interaction and the
+    # rank of its low-rank cross net
+    interaction: str = "dot"
+    dcn_low_rank_dim: int = 0
     attention_mlp: Tuple[int, ...] = (32,)  # din activation-unit hidden sizes
     # bst only (models/bst.py): encoder geometry over [target + behaviors]
     attention_heads: int = 2

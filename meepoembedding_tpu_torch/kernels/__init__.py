@@ -5,7 +5,8 @@ tensor takes the plain version, a CUDA tensor launches the kernel (built at
 first use by `_build`) or the wrapper raises. There is no fallback from the
 kernel to the plain version. Each kernel source counts its launches in a
 plain integer attribute of its main wrapper, `<wrapper>.launches`
-(`segment_sum` counts its two kernels in `row_merge_add.launches`,
+(`segment_sum` and `segment_sum_gather`, its form that reads the rows of
+any source, count their two kernels in `row_merge_add.launches`,
 `row_scatter_set_multi` in `row_scatter_set.launches`, `row_gather_multi`
 in `row_gather.launches`). `row_block_copy` holds the random-row block
 gather and scatter of the DMA probe (`row_block_gather.launches`,
@@ -35,6 +36,7 @@ from meepoembedding_tpu_torch.kernels.row_merge_add import (  # noqa: F401
     row_merge_add_plain,
     segment_size,
     segment_sum,
+    segment_sum_gather,
 )
 from meepoembedding_tpu_torch.kernels.row_scatter_add import (  # noqa: F401
     row_scatter_add,

@@ -28,6 +28,11 @@ Two wrappers share one plain version and one launch counter,
   per-segment partials of longer runs in segment order: two kernels, counted
   as two launches. No atomics: the same inputs give the same bits on every
   launch.
+- `segment_sum_gather(src, order, sorted_rows, num_rows)` is the same two
+  kernels with `order` read as rows of any [R, W] source: out[sorted_rows[k]]
+  += src[order[k]]. A multi-hot bag's pooled row is one such run (the bag's
+  ids in order, `order` their unique rows), and so is its backward (the
+  dedup's sorted ids, `order` the bag of each): no [m, W] rows are made.
 
 Both kernels (`csrc/row_merge_add.cu`) are bound by device memory.
 """
@@ -158,25 +163,61 @@ def segment_sum(upd: torch.Tensor, vrow: torch.Tensor, num_rows: int,
         out = torch.zeros((num_rows, width), dtype=torch.float32)
         _validate(out, vrow, upd)
         return row_merge_add_plain(out, vrow, upd)
+    return _segment_sum_card(upd, order, sorted_rows, num_rows, vrow)
+
+
+def _segment_sum_card(src: torch.Tensor, order: Optional[torch.Tensor],
+                      sorted_rows: Optional[torch.Tensor], num_rows: int,
+                      vrow: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernels' launch: out[sorted_rows[k]] += src[order[k]] from zero;
+    with `vrow` (`segment_sum`'s rows of src, checked against it) the sort
+    is vrow's own when not given."""
+    m, width = (vrow if vrow is not None else order).shape[0], src.shape[1]
     # one allocation: the output, then the kernels' scratch (two partials a
     # segment); the entry zeroes the output with a memset
     out_len = num_rows * width
     buf = torch.empty(out_len + 2 * -(-m // segment_size()) * width, dtype=torch.float32,
-                      device=upd.device)
+                      device=src.device)
     out = buf[:out_len].view(num_rows, width)
-    _validate(out, vrow, upd)
+    if vrow is not None:
+        _validate(out, vrow, src)
     if m == 0:
         return out.zero_()
     if order is None:
         sorted_rows, order = torch.sort(vrow, stable=True)
     err = _fn("meepo_segment_sum", _SUM_ARGS)(
-        out.data_ptr(), sorted_rows.data_ptr(), order.data_ptr(), upd.data_ptr(),
-        out.data_ptr() + 4 * out_len, m, num_rows, width, _build.raw_stream(upd.device),
+        out.data_ptr(), sorted_rows.data_ptr(), order.data_ptr(), src.data_ptr(),
+        out.data_ptr() + 4 * out_len, m, num_rows, width, _build.raw_stream(src.device),
     )
     if err:
         _build.check(_build.load("row_merge_add"), err, "segment_sum")
     row_merge_add.launches += 2  # the walk and the combine pass
     return out
+
+
+def segment_sum_gather(src: torch.Tensor, order: torch.Tensor, sorted_rows: torch.Tensor,
+                       num_rows: int) -> torch.Tensor:
+    """[R, W] f32 rows -> [num_rows, W] f32 with out[sorted_rows[k]] +=
+    src[order[k]] from zero, for k = 0 .. m - 1 in order: `sorted_rows`
+    int32 [m], non-decreasing; `order` int64 [m], rows of `src` in [0, R).
+    Rows of `sorted_rows` outside [0, num_rows) are dropped. CPU tensors
+    take the plain version, `index_add_` in the order of k: the kernels'
+    twin, to the bit where no run of `sorted_rows` spans three segments of
+    `segment_size()` positions; CUDA tensors launch the segment sum's
+    kernels."""
+    if src.dim() != 2 or src.dtype != torch.float32:
+        raise ValueError(f"segment_sum_gather: src must be 2-D float32, got "
+                         f"{tuple(src.shape)} {src.dtype}")
+    if (order.dtype != torch.int64 or sorted_rows.dtype != torch.int32 or order.dim() != 1
+            or order.shape != sorted_rows.shape):
+        raise ValueError(f"segment_sum_gather: order must be int64 and sorted_rows int32, "
+                         f"both 1-D of one length; got {order.dtype} {tuple(order.shape)} "
+                         f"and {sorted_rows.dtype} {tuple(sorted_rows.shape)}")
+    if not _on_card((src, order, sorted_rows)):
+        out = torch.zeros((num_rows, src.shape[1]), dtype=torch.float32)
+        keep = (sorted_rows >= 0) & (sorted_rows < num_rows)
+        return out.index_add_(0, sorted_rows[keep].long(), src.index_select(0, order[keep]))
+    return _segment_sum_card(src, order, sorted_rows, num_rows)
 
 
 row_merge_add.launches = 0

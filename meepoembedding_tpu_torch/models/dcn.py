@@ -7,6 +7,12 @@ Full-rank cross layers
 beside a deep ReLU tower over the same input x_0 = [dense | flattened
 embeddings]; the two are concatenated into a linear head (Wang et al.,
 2021). The cross weights keep the reference's layout ([I, I], `x @ W`).
+
+This is not MLPerf DLRM-DCNv2's interaction, which is `dlrm` with
+`interaction="dcn"` (models/dlrm.py): there the cross layers are low-rank
+(W_l V_l, rank `dcn_low_rank_dim`), x_0 holds the bottom MLP's output in
+place of the raw dense features, and the stack is sequential, the top MLP
+over the cross net's output alone, with no deep tower beside it.
 """
 
 from __future__ import annotations

@@ -21,6 +21,14 @@ training step sorts once. The plane is zeroed by a memset before the kernel
 writes the runs' sums: the rows past the unique count (most of a [U, dim]
 plane padded to the batch) must read zero, and a memset writes them at the
 copy rate.
+
+Not in the reference: with ragged multi-hot bags (`pooling.Bags`), the
+gather pools. Forward, each bag's row is the sum of its ids' unique rows
+(K1's segment sum reading the rows through `inverse`, the bags' positions in
+order), then the combiner (`pooling.pool_bags`): [B * S, dim], an empty bag
+zeros. Backward, the pooled gradient scaled as the combiner scales goes
+to the unique rows by the same segment sum over the dedup's sorted ids,
+each reading its bag's row. No [n, dim] rows are made either way.
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from meepoembedding_tpu_torch.kernels import row_gather, segment_sum
+from meepoembedding_tpu_torch.kernels import row_gather, segment_sum, segment_sum_gather
+from meepoembedding_tpu_torch.ops import pooling
 from meepoembedding_tpu_torch.table import hashing
 from meepoembedding_tpu_torch.tracing import span
 
@@ -116,20 +125,46 @@ class GatherRows(torch.autograd.Function):
     gradient is the segment sum of the batch-order gradients (K1). This is
     how the model's gradient reaches the unique rows of a training step.
     `order` and `sorted_ids` (the `Unique`'s) let the backward skip its
-    sort."""
+    sort. With `bags` (`pooling.Bags` of ragged ids) the rows come out
+    pooled, [B * S, dim], and the gradient goes back through the pooling."""
 
     @staticmethod
     def forward(ctx, rows_u: torch.Tensor, inverse: torch.Tensor,
                 order: Optional[torch.Tensor] = None,
-                sorted_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ctx.save_for_backward(inverse, *(() if order is None else (order, sorted_ids)))
+                sorted_ids: Optional[torch.Tensor] = None,
+                bags: Optional[pooling.Bags] = None) -> torch.Tensor:
+        sort = () if order is None else (order, sorted_ids)
         ctx.num_unique = rows_u.shape[0]
-        with span("meepo.table.gather"):
-            return row_gather(rows_u.contiguous(), inverse)
+        ctx.bags = bags is not None
+        if bags is None:
+            ctx.save_for_backward(inverse, *sort)
+            with span("meepo.table.gather"):
+                return row_gather(rows_u.contiguous(), inverse)
+        ctx.save_for_backward(inverse, bags.of, bags.lengths, *sort)
+        ctx.combiner = bags.combiner
+        with span("meepo.table.pool"):
+            B, S = bags.lengths.shape
+            sums = segment_sum_gather(rows_u.float().contiguous(), inverse.long(), bags.of,
+                                      B * S)
+            return pooling.pool_bags(sums.view(B, S, 1, -1), bags.lengths,
+                                     bags.combiner).reshape(B * S, -1)
 
     @staticmethod
     def backward(ctx, grad_out: torch.Tensor):
-        inverse, *sort = ctx.saved_tensors
-        with span("meepo.table.segment_sum"):
-            g = segment_sum_grads(grad_out, inverse, ctx.num_unique, *sort)
-        return g, None, None, None
+        if not ctx.bags:
+            inverse, *sort = ctx.saved_tensors
+            with span("meepo.table.segment_sum"):
+                g = segment_sum_grads(grad_out, inverse, ctx.num_unique, *sort)
+            return g, None, None, None, None
+        inverse, of, lengths, *sort = ctx.saved_tensors
+        with span("meepo.table.pool_backward"):
+            if sort:
+                order, sorted_ids = sort
+            else:
+                sorted_ids, order = torch.sort(inverse, stable=True)
+            g = pooling.combine(grad_out.reshape(-1, grad_out.shape[-1]).float(),
+                                pooling.bag_counts(lengths).reshape(-1),
+                                ctx.combiner).contiguous()
+            bag_of_sorted = of.long().index_select(0, order)
+            g = segment_sum_gather(g, bag_of_sorted, sorted_ids, ctx.num_unique)
+        return g, None, None, None, None

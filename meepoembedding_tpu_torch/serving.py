@@ -16,6 +16,11 @@ ids give zero embeddings, multi-hot bags pool with the configured combiner.
 `quantize="int8"` serves from a read-only `serving_quant.QuantizedTable`
 instead of the dynamic table; at dim 32 it takes 2.4x fewer bytes than
 the f32 rows and their ids.
+
+Not in the reference: multi-hot bags go the ragged way, as the trainer's
+do (`train.py`, `pooling.takes_ragged`), from the dynamic table: only the
+valid ids are probed, and `dedup.GatherRows` pools the bags from the unique
+rows. The int8 table, which has no unique-id lookup, reads padded bags.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from meepoembedding_tpu_torch import checkpoint
 from meepoembedding_tpu_torch.models import build_model
 from meepoembedding_tpu_torch.models.common import model_apply, model_inputs
+from meepoembedding_tpu_torch.ops import dedup, pooling
 from meepoembedding_tpu_torch.serving_quant import QuantizedTable
 from meepoembedding_tpu_torch.table import hashing
 from meepoembedding_tpu_torch.table.layout import resolve_device
@@ -77,24 +83,31 @@ class ScoringService:
             from_jax_params(model, checkpoint.load_dense(path, "params"))
         return model.to(self.device).eval()
 
-    def score(self, dense, ids) -> np.ndarray:
-        """[B, ND] f32 + [B, S] or [B, S, L] int64 -> [B] probabilities."""
+    def score(self, dense, ids, lengths=None) -> np.ndarray:
+        """[B, ND] f32 + [B, S] or [B, S, L] int64 -> [B] probabilities.
+        With bags, `lengths` [B, S] says that their ids are the first
+        lengths[b, s] slots of each (`pooling.ragged_batch`)."""
         with span("meepo.serve.request"):
             ids = np.asarray(ids, np.int64)
+            ragged = (pooling.takes_ragged(self.model, ids)
+                      and hasattr(self.table, "lookup_unique"))
             t0 = time.perf_counter()
             with span("meepo.serve.queue"):
                 self._lock.acquire()
             try:
                 with torch.no_grad():
                     with span("meepo.serve.inputs"):
-                        ids_t = torch.from_numpy(ids).to(self.device)
+                        ids_t = None if ragged else torch.from_numpy(ids).to(self.device)
                         dense_t = torch.from_numpy(np.asarray(dense, np.float32)).to(self.device)
-                    rows = self.table.lookup(ids_t.reshape(-1), train=False)
-                    bag_valid = None
-                    if ids.ndim == 3:
-                        bag_valid = hashing.is_valid(*hashing.split_ids_t(ids_t))
+                    bag_valid, shape = None, ids.shape
+                    if ragged:
+                        rows, shape = self._pooled(ids, lengths)
+                    else:
+                        rows = self.table.lookup(ids_t.reshape(-1), train=False)
+                        if ids.ndim == 3:
+                            bag_valid = hashing.is_valid(*hashing.split_ids_t(ids_t))
                     with span("meepo.tower.forward"):
-                        emb = model_inputs(self.model, rows, ids.shape, bag_valid,
+                        emb = model_inputs(self.model, rows, shape, bag_valid,
                                            self.table_cfg.dim, self.model_cfg.combiner)
                         p = torch.sigmoid(model_apply(self.model, dense_t, emb, bag_valid))
                     with span("meepo.serve.readback_sync"):
@@ -106,6 +119,16 @@ class ScoringService:
                 return out
             finally:
                 self._lock.release()
+
+    def _pooled(self, ids: np.ndarray, lengths):
+        """The ragged bags' pooled rows [B * S, dim] and (B, S): the valid
+        ids probed once each, pooled by `dedup.GatherRows`."""
+        with span("meepo.serve.ragged"):
+            flat, bags = pooling.ragged_batch(ids, lengths, self.device,
+                                              self.model_cfg.combiner)
+        rows, inverse = self.table.lookup_unique(flat)
+        pooled = dedup.GatherRows.apply(rows.float(), inverse, None, None, bags)
+        return pooled, tuple(bags.lengths.shape)
 
     def reload(self, ckpt_path: str | None = None) -> dict:
         """Hot-swap to a (usually newer) checkpoint: the replacement table and

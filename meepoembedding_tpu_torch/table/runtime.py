@@ -151,18 +151,12 @@ class DynamicEmbeddingTable:
 
         The batch pads to the next power of two with the invalid id, as in
         the reference, so its unique order and capacity match exactly."""
-        ids = _ids_tensor(ids64, self.device)
-        n = ids.shape[0]
-        npad = max(1, 1 << max(0, (n - 1).bit_length()))
-        if npad != n:
-            ids = torch.cat([ids, ids.new_full((npad - n,), int(hashing.EMPTY_ID))])
-        hi, lo = hashing.split_ids_t(ids)
         if not train:
-            uniq = dedup.unique_pairs(hi, lo, size=npad)
-            pr = table_ops.probe(self.spec, self.shard, uniq.hi, uniq.lo, uniq.valid)
+            rows, inverse = self.lookup_unique(ids64)
             with span("meepo.table.gather"):
-                rows = table_ops.lookup_rows(self.shard, torch.where(pr.found, pr.slot, -1))
-                return row_gather(rows, uniq.inverse[:n])
+                return row_gather(rows, inverse)
+        ids, n, npad = self._padded(ids64)
+        hi, lo = hashing.split_ids_t(ids)
         self._maybe_grow(n)
         self._apply_promotions()
         spec, shard = self.spec, self.shard
@@ -179,6 +173,28 @@ class DynamicEmbeddingTable:
         if self._promoter is not None:
             self._promoter.feed(uniq.hi, uniq.lo, uniq.valid & ~ctx.found)
         return row_gather(ctx.rows_u, uniq.inverse[:n]).to(spec.dtype)
+
+    def _padded(self, ids64):
+        """(ids padded to the next power of two with the invalid id, n,
+        the padded length)."""
+        ids = _ids_tensor(ids64, self.device)
+        n = ids.shape[0]
+        npad = max(1, 1 << max(0, (n - 1).bit_length()))
+        if npad != n:
+            ids = torch.cat([ids, ids.new_full((npad - n,), int(hashing.EMPTY_ID))])
+        return ids, n, npad
+
+    def lookup_unique(self, ids64):
+        """Probe-only: (rows [U, dim] of the batch's unique ids, unknown ids
+        zero rows; inverse [n] int32, each id's row). The batch pads as
+        `lookup`'s does; `lookup(train=False)` is rows[inverse]."""
+        ids, n, npad = self._padded(ids64)
+        hi, lo = hashing.split_ids_t(ids)
+        uniq = dedup.unique_pairs(hi, lo, size=npad)
+        pr = table_ops.probe(self.spec, self.shard, uniq.hi, uniq.lo, uniq.valid)
+        with span("meepo.table.gather"):
+            rows = table_ops.lookup_rows(self.shard, torch.where(pr.found, pr.slot, -1))
+        return rows, uniq.inverse[:n]
 
     def _apply_promotions(self) -> None:
         """Insert the staged cold->hot promotions into the device table with

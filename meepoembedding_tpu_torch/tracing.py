@@ -19,6 +19,9 @@ end in `_sync`.
 
   meepo.train.step          Trainer.train_step, whole
   meepo.train.inputs        the step's host-to-device copies of its batch
+  meepo.train.ragged        ragged bags: the valid ids taken
+                            (`pooling.ragged_batch`), their copy, and each
+                            id's bag on the device
   meepo.train.metrics       last_logits and the streaming AUC's update
   meepo.train.loss_sync     the loss's read-back
   meepo.table.dedup         dedup.unique_pairs
@@ -36,13 +39,19 @@ end in `_sync`.
                             row gathers
   meepo.table.segment_sum   GatherRows.backward (on a card, in the
                             autograd engine's thread)
+  meepo.table.pool          GatherRows.forward of ragged bags: each bag's
+                            sum of its unique rows, then the combiner
+  meepo.table.pool_backward its backward, the pooled gradient to the
+                            unique rows
   meepo.table.update        optim.apply_sparse_grads_ctx
   meepo.tower.forward       the tower's forward (and loss, in a step)
+  meepo.tower.cross         DLRM-DCNv2's cross net, in the forward
   meepo.tower.backward      torch.autograd.grad in a step
   meepo.tower.update        clip, learning rate and the dense Adam
   meepo.serve.request       ScoringService.score, whole
   meepo.serve.queue         waiting for the service's lock
   meepo.serve.inputs        a request's host-to-device copies
+  meepo.serve.ragged        a request's ragged bags: as meepo.train.ragged
   meepo.serve.readback_sync the scores' copy to the host
 """
 

@@ -21,6 +21,15 @@ One path serves every dim: the values plane is row-major, so the
 reference's 128-lane window rows (dim <= 128) and its `find_or_insert` path
 (dim > 128) are both this one.
 
+Not in the reference: multi-hot bags go the ragged way for a model that
+takes pooled bags (`pooling.takes_ragged`): only the batch's n valid ids
+are taken (`pooling.ragged_batch`, span `meepo.train.ragged`; on the host
+from `lengths` [B, S] where the batch carries them), deduplicated to
+capacity n, and `GatherRows` pools them by bag (`pooling.Bags`), so padding
+never reaches the dedup, the probe, the gather or the update. Models that
+pool inside or key items by their padded bags (din, bst, two_tower) keep
+the padded path.
+
   >>> tr = Trainer(RunConfig(batch_size=256), TableConfig(dim=16), ModelConfig(...),
   ...              device="cpu")
   >>> tr.train_step({"dense": d, "ids": ids, "label": y})   # {"loss": ...}
@@ -38,7 +47,7 @@ from meepoembedding_tpu_torch.config import ModelConfig, RunConfig, TableConfig
 from meepoembedding_tpu_torch.metrics import JsonlLogger, Meter, StreamingAUC
 from meepoembedding_tpu_torch.models import build_model
 from meepoembedding_tpu_torch.models.common import batch_item_key, model_inputs, model_loss
-from meepoembedding_tpu_torch.ops import dedup, optim
+from meepoembedding_tpu_torch.ops import dedup, optim, pooling
 from meepoembedding_tpu_torch.ops.itemfreq import ItemFrequencyEstimator, item_keys_np
 from meepoembedding_tpu_torch.table import hashing, table_ops
 from meepoembedding_tpu_torch.table.layout import (
@@ -119,34 +128,45 @@ class Trainer:
         return self.run_cfg.unique_cap or int(np.prod(ids_shape))
 
     def _inputs(self, batch: dict):
+        """(ids shape or (B, S) of ragged bags, dense, label, the dedup, the
+        padded bags' validity, the item key, the ragged `pooling.Bags`)."""
+        ragged = pooling.takes_ragged(self.model, batch["ids"])
         with span("meepo.train.inputs"):
-            ids = _tensor(batch["ids"], self.device, torch.int64)
+            ids = None if ragged else _tensor(batch["ids"], self.device, torch.int64)
             dense = _tensor(batch["dense"], self.device, torch.float32)
             label = _tensor(batch["label"], self.device, torch.float32)
+        if ragged:
+            with span("meepo.train.ragged"):
+                flat, bags = pooling.ragged_batch(batch["ids"], batch.get("lengths"),
+                                                  self.device, self.model_cfg.combiner)
+            hi, lo = hashing.split_ids_t(flat)
+            uniq = dedup.unique_pairs(hi, lo, self.run_cfg.unique_cap or flat.shape[0])
+            return tuple(bags.lengths.shape), dense, label, uniq, None, None, bags
         hi, lo = hashing.split_ids_t(ids)
         uniq = dedup.unique_pairs(hi.reshape(-1), lo.reshape(-1), self._unique_cap(ids.shape))
         # multi-hot bags ([B, S, L] ids, sentinel-padded) pool per feature
         bag_valid = hashing.is_valid(hi, lo) if ids.dim() == 3 else None
         ikey = batch_item_key(self.model, hi, lo)
-        return ids.shape, dense, label, uniq, bag_valid, ikey
+        return ids.shape, dense, label, uniq, bag_valid, ikey, None
 
     def train_step(self, batch: dict) -> dict:
         """One step on a batch {"dense": [B, ND], "ids": [B, S] or [B, S, L]
-        int64, "label": [B]}. Returns {"loss": float}; the step's logits stay
-        in `last_logits`."""
+        int64, "label": [B]}, with bags optionally "lengths": [B, S] int32
+        (their ids the first lengths[b, s] slots of each). Returns {"loss":
+        float}; the step's logits stay in `last_logits`."""
         with span("meepo.train.step"):
             return self._train_step(batch)
 
     def _train_step(self, batch: dict) -> dict:
         spec, rc = self.spec, self.run_cfg
-        shape, dense, label, uniq, bag_valid, ikey = self._inputs(batch)
+        shape, dense, label, uniq, bag_valid, ikey, bags = self._inputs(batch)
         logq = None
         if self._freq_est is not None:
             keys = item_keys_np(_host_ids(batch["ids"]), self.model.qf)
             logq = torch.from_numpy(self._freq_est.update_and_logq(keys)).to(self.device)
         ctx = table_ops.lookup_train(spec, self.shard, uniq.hi, uniq.lo, uniq.valid, self.step)
         rows_u = ctx.rows_u.detach().requires_grad_(True)
-        flat = dedup.GatherRows.apply(rows_u, uniq.inverse, uniq.order, uniq.sorted_ids)
+        flat = dedup.GatherRows.apply(rows_u, uniq.inverse, uniq.order, uniq.sorted_ids, bags)
         with span("meepo.tower.forward"):
             emb = model_inputs(self.model, flat, shape, bag_valid, spec.dim,
                                self.model_cfg.combiner)
@@ -174,11 +194,11 @@ class Trainer:
         """Probe-only scoring of a labelled batch: unknown ids read zero rows
         and nothing is inserted. Returns {"loss": float, "logits": [B]}."""
         spec = self.spec
-        shape, dense, label, uniq, bag_valid, ikey = self._inputs(batch)
+        shape, dense, label, uniq, bag_valid, ikey, bags = self._inputs(batch)
         pr = table_ops.probe(spec, self.shard, uniq.hi, uniq.lo, uniq.valid)
         rows = table_ops.lookup_rows(self.shard, torch.where(pr.found, pr.slot, -1))
         flat = dedup.GatherRows.apply(rows.float(), uniq.inverse, uniq.order,
-                                      uniq.sorted_ids)
+                                      uniq.sorted_ids, bags)
         emb = model_inputs(self.model, flat, shape, bag_valid, spec.dim, self.model_cfg.combiner)
         loss, logits = model_loss(self.model, dense, emb, bag_valid, label, ikey)
         return {"loss": float(loss), "logits": logits}
