@@ -57,8 +57,12 @@ Phases (any failure exits non-zero and prints no result line):
            live, 10% unknown) are scored and timed; one request's rows are
            held against the rows that were written, its scores against the
            tower on the CPU, and one POST /score against the direct score.
-           Fails unless a request launches 1 bucket_probe and 2
-           row_gather (the values; the inverse).
+           On the card a request of one size replays its CUDA graph
+           (`ScoringService._graph_score`), which calls no kernel wrapper:
+           fails unless the warm-up's capture counts twice an eager
+           request's 1 bucket_probe and 2 row_gather (the values; the
+           inverse), every timed request is a replay and counts none, and
+           a traced replay runs those 3 launches.
            Right after the restore, before the fill, it makes the
            sharded_http phase's requests (5 warm-up and 32 timed of 4096 x
            26 ids of the checkpoint, 10% unknown, and one of 37 rows),
@@ -351,7 +355,9 @@ Phases (any failure exits non-zero and prints no result line):
            8 of them, whose AUC (within 1e-6) and mean loss (rtol 1e-5) are
            those of that service's scores. Each in-process command is held to
            its launches: a restore batch 3 sets and 1 probe, a scoring
-           batch 1 probe and 2 gathers, a train step the train phase's, an
+           batch 1 probe and 2 gathers (on the card, the batches' one
+           size's graph capture twice that and its replays none), a train
+           step the train phase's, an
            import chunk 3 sets and 1 probe and a saved part file 3 gathers,
            a bench prefill batch 3 sets and 1 probe and a bench cycle 1
            set, 1 probe and 2 gathers (+ 3 K1 and 1 fetch-add to update),
@@ -1282,10 +1288,12 @@ def serve(args, dev, rng, card: str) -> dict:
     nd, ns = model_cfg.num_dense_features, model_cfg.num_sparse_features
     reqs = [(rng.standard_normal((args.batch, nd), dtype=np.float32),
              make_request(rng, pools, args.batch, ns)) for _ in range(args.requests + 3)]
-    for dense, ids in reqs[:3]:  # warm-up
+    at, paths = launches(), score_paths(svc)
+    for dense, ids in reqs[:3]:  # warm-up: on the card, the size's capture and two replays
         svc.score(dense, ids)
+    hold_score_launches("the serve warm-up", svc, at, paths, dev)
     lat, scores = [], []
-    at = launches()
+    at, paths = launches(), score_paths(svc)
     for dense, ids in reqs[3:]:
         t0 = time.perf_counter()
         p = svc.score(dense, ids)
@@ -1299,12 +1307,21 @@ def serve(args, dev, rng, card: str) -> dict:
     log(f"serve: {len(lat)} requests of {args.batch} x {ns} ids: p50 {np.percentile(lat, 50):.3f} ms, "
         f"p99 {np.percentile(lat, 99):.3f} ms, mean {lat.mean():.3f} ms, "
         f"{ids_per_req * len(lat) / (lat.sum() / 1e3):.0f} ids/s on {card}; launches per "
-        f"request: {delta(at, len(lat))}")
-    d = _launch_delta(at)
-    if dev.type == "cuda" and (d["row_gather"], d["bucket_probe"]) != (2 * len(lat), len(lat)):
-        raise AssertionError(f"{len(lat)} requests launched row_gather {d['row_gather']} and "
-                             f"bucket_probe {d['bucket_probe']} times, not 2 and 1 a request "
-                             f"(the values, the inverse; the probe)")
+        f"request on the host's counters: {delta(at, len(lat))}; requests by path "
+        f"{score_paths(svc)}")
+    replays = svc.graph_replays - paths[1]
+    if dev.type == "cuda" and replays != len(lat):
+        raise AssertionError(f"{replays} of the {len(lat)} timed requests were graph replays, "
+                             f"not every one: each follows a warm-up request of its size")
+    hold_score_launches("the timed requests", svc, at, paths, dev)
+    if dev.type == "cuda":  # the kernels inside a replay, on the device's own record
+        _, seen, made = profile_pass([lambda: svc.score(*reqs[3])], host=False, flush=False)
+        if (seen, made) != (3, 0):
+            raise AssertionError(f"a traced replay ran {seen} launches of the repo's kernels "
+                                 f"and its wrappers counted {made}, not 3 (1 bucket_probe, 2 "
+                                 f"row_gather: the values, the inverse) and 0")
+        log(f"serve: a traced replay ran {seen} launches of the repo's kernels (1 bucket_probe, "
+            f"2 row_gather), none counted on the host")
 
     # one request's rows against the rows that were written (restored from
     # the checkpoint or assigned), and zero rows for the unknown ids
@@ -2257,6 +2274,37 @@ def _found(spec, shard, ids) -> torch.Tensor:
 def _launch_delta(before: dict) -> dict:
     now = launches()
     return {k: now[k] - before[k] for k in now}
+
+
+def score_paths(svc) -> tuple:
+    """A ScoringService's answered requests by path: (graph captures, graph
+    replays, eager requests)."""
+    return svc.graph_captures, svc.graph_replays, svc.eager_requests
+
+
+def score_launches(captures: int, eager: int) -> dict:
+    """The launches the kernel wrappers count for a ScoringService's one-hot
+    requests: 1 bucket_probe and 2 row_gather (the values; the inverse) an
+    eager request, twice that a graph's capture (an eager run on the capture
+    stream, then the captured one), none a replay (a replay calls no
+    wrapper)."""
+    chains = eager + 2 * captures
+    return {"bucket_probe": chains, "row_gather": 2 * chains}
+
+
+def hold_score_launches(what: str, svc, before: dict, paths: tuple, dev) -> None:
+    """Fail unless the one-hot requests `svc` answered since `before` (its
+    launches) and `paths` (`score_paths`) counted what `score_launches`
+    gives for their paths, and launched nothing else."""
+    if dev.type != "cuda":
+        return
+    now = score_paths(svc)
+    got = _launch_delta(before)
+    want = {k: 0 for k in got}
+    want.update(score_launches(now[0] - paths[0], now[2] - paths[2]))
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, not {want} (captures, replays, eager: "
+                             f"{paths} before, {now} after)")
 
 
 def lifecycle_live(args, table, assigned, dev, card: str) -> dict:
@@ -5182,6 +5230,13 @@ def part_files(path) -> int:
     return len(ckpt_io._shard_files(ckpt_io._data_dir(str(path), m), 0))
 
 
+def served_batches(batches: int, dev) -> int:
+    """The probe-only lookups the wrappers count for `batches` one-hot
+    scoring batches of one size through a ScoringService: on the card their
+    size's capture runs the chain twice and each replay calls no wrapper."""
+    return min(batches, 1) * 2 if dev.type == "cuda" else batches
+
+
 def restore_launches(path, batches: int, steps: int = 0) -> dict:
     """A restore (3 sets and 1 probe a batch) followed by `batches`
     probe-only scoring batches (1 probe, 2 gathers) or `steps` train steps
@@ -5330,7 +5385,7 @@ def cli_phase(args, dev, card: str) -> dict:
         if len(sv_d["lines"]) != 2 or len(sv_c["lines"]) != 2:
             raise AssertionError("serve printed other than 2 batches")
         hold_launches("eval", ev_d, restore_launches(ck, 2), dev)
-        hold_launches("serve", sv_d, restore_launches(ck, 2), dev)
+        hold_launches("serve", sv_d, restore_launches(ck, served_batches(2, dev)), dev)
         add_counts(counts, ev_d)
         add_counts(counts, sv_d)
         log(f"cli: eval and serve, {dev.type} against the CPU, at {min(cap, CLI_CPU_CAP)} slots: "
@@ -5378,7 +5433,7 @@ def cli_serve_phase(args, res, dev, card: str) -> dict:
         probs.append(p)
         np.testing.assert_allclose(line["scores"], p, **SCORE_TOL)
     lat = json.loads(sv["err"].strip().splitlines()[-1])
-    hold_launches("serve", sv, restore_launches(ck, nbatch), dev)
+    hold_launches("serve", sv, restore_launches(ck, served_batches(nbatch, dev)), dev)
     log(f"cli: serve of the {args.ckpt_rows}-row checkpoint at {args.capacity} slots: {nbatch} "
         f"batches of {args.batch} in {sv['s']:.2f} s (restore included), latency a batch "
         f"{lat['serve_latency_ms']}; scores within rtol 1e-5 / atol 1.5e-6 of the serve phase's "

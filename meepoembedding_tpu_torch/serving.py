@@ -17,6 +17,14 @@ ids give zero embeddings, multi-hot bags pool with the configured combiner.
 instead of the dynamic table; at dim 32 it takes 2.4x fewer bytes than
 the f32 rows and their ids.
 
+On a card, a one-hot request ([C, S] ids) to the dynamic table runs as one
+captured CUDA graph: C pads to the next power of two (`request_bucket`,
+`pad_request`), and each padded size replays its own graph of the whole
+device chain (the ids' split, the dedup, the probe, the row gathers, the
+tower and the sigmoid) in place of some hundred eager launches. Every other
+request (bags, the int8 table, the CPU) runs eagerly, through the same
+functions.
+
 Not in the reference: multi-hot bags go the ragged way, as the trainer's
 do (`train.py`, `pooling.takes_ragged`), from the dynamic table: only the
 valid ids are probed, and `dedup.GatherRows` pools the bags from the unique
@@ -26,8 +34,10 @@ rows. The int8 table, which has no unique-id lookup, reads padded bags.
 from __future__ import annotations
 
 import json
+import logging
 import threading
 import time
+import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -44,8 +54,58 @@ from meepoembedding_tpu_torch.table.runtime import DynamicEmbeddingTable
 from meepoembedding_tpu_torch.tracing import span
 from meepoembedding_tpu_torch.weights import from_jax_params
 
+log = logging.getLogger(__name__)
+
+
+def request_bucket(c: int) -> int:
+    """The candidates a request of `c` pads to on the graph path: the next
+    power of two, at least 1."""
+    return 1 << max(0, (c - 1).bit_length())
+
+
+def pad_request(dense: np.ndarray, ids: np.ndarray, dense_out: np.ndarray,
+                ids_out: np.ndarray) -> None:
+    """Write a request's [C, ND] dense values and [C, S] (or [C, S, L]) ids
+    into the first C rows of [Cp, ...] buffers, and zeros and the invalid id
+    into the rest, as `DynamicEmbeddingTable._padded` pads a batch: a padded
+    candidate probes to zero rows and its score is cut off."""
+    c = len(ids)
+    dense_out[:c] = dense
+    dense_out[c:] = 0
+    ids_out[:c] = ids
+    ids_out[c:] = hashing.EMPTY_ID
+
+
+class _RequestGraph:
+    """One bucket's captured request: pinned host inputs, their device
+    copies, the graph and its [Cp] output (in the service's graph pool)."""
+
+    def __init__(self, cp: int, num_sparse: int, num_dense: int, device: torch.device):
+        self.shape = (cp, num_sparse)
+        ids_host = torch.empty(self.shape, dtype=torch.int64, pin_memory=True)
+        dense_host = torch.empty((cp, num_dense), dtype=torch.float32, pin_memory=True)
+        self.host = (dense_host, ids_host.view(-1))
+        self.host_np = (dense_host.numpy(), ids_host.numpy())
+        self.dense = torch.empty((cp, num_dense), dtype=torch.float32, device=device)
+        self.ids = torch.empty((cp * num_sparse,), dtype=torch.int64, device=device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.out = None
+
+    def load(self, dense: np.ndarray, ids: np.ndarray) -> None:
+        """The request into the device inputs, padded (`pad_request`). The
+        pinned buffers are free again: the last request's read-back waited
+        for every copy before it."""
+        pad_request(dense, ids, *self.host_np)
+        self.dense.copy_(self.host[0], non_blocking=True)
+        self.ids.copy_(self.host[1], non_blocking=True)
+
 
 class ScoringService:
+    """`graph_replays`, `graph_captures` and `eager_requests` count the
+    answered requests by path: a replay of a bucket's graph, the request
+    that captured it, or the eager one (bags, int8, the CPU, a bucket whose
+    capture failed)."""
+
     def __init__(self, ckpt_path: str, table_cfg, model_cfg, quantize: str = "none",
                  device="cuda"):
         if quantize not in ("none", "int8"):
@@ -59,6 +119,11 @@ class ScoringService:
         self._lock = threading.Lock()  # one device; serialize requests
         self._lat_ms: list = []  # ring of recent scoring latencies
         self._requests = 0
+        self.graph_replays = self.graph_captures = self.eager_requests = 0
+        # (bucket, S, ND) -> _RequestGraph, or None where its capture failed;
+        # captured on the objects `_graph_of` refers to, in one pool
+        self._graphs: dict = {}
+        self._graph_of = self._graph_pool = None
 
     def _load_table(self, path: str):
         """(table, manifest) of a checkpoint: the dynamic table, or with
@@ -89,6 +154,7 @@ class ScoringService:
         lengths[b, s] slots of each (`pooling.ragged_batch`)."""
         with span("meepo.serve.request"):
             ids = np.asarray(ids, np.int64)
+            dense = np.asarray(dense, np.float32)
             ragged = (pooling.takes_ragged(self.model, ids)
                       and hasattr(self.table, "lookup_unique"))
             t0 = time.perf_counter()
@@ -96,22 +162,10 @@ class ScoringService:
                 self._lock.acquire()
             try:
                 with torch.no_grad():
-                    with span("meepo.serve.inputs"):
-                        ids_t = None if ragged else torch.from_numpy(ids).to(self.device)
-                        dense_t = torch.from_numpy(np.asarray(dense, np.float32)).to(self.device)
-                    bag_valid, shape = None, ids.shape
-                    if ragged:
-                        rows, shape = self._pooled(ids, lengths)
-                    else:
-                        rows = self.table.lookup(ids_t.reshape(-1), train=False)
-                        if ids.ndim == 3:
-                            bag_valid = hashing.is_valid(*hashing.split_ids_t(ids_t))
-                    with span("meepo.tower.forward"):
-                        emb = model_inputs(self.model, rows, shape, bag_valid,
-                                           self.table_cfg.dim, self.model_cfg.combiner)
-                        p = torch.sigmoid(model_apply(self.model, dense_t, emb, bag_valid))
-                    with span("meepo.serve.readback_sync"):
-                        out = p.cpu().numpy()
+                    out = self._graph_score(dense, ids) if self._takes_graph(dense, ids) else None
+                    if out is None:
+                        out = self._eager_score(dense, ids, lengths, ragged)
+                        self.eager_requests += 1
                 self._requests += 1
                 self._lat_ms.append((time.perf_counter() - t0) * 1e3)
                 if len(self._lat_ms) > 1024:
@@ -119,6 +173,105 @@ class ScoringService:
                 return out
             finally:
                 self._lock.release()
+
+    def _eager_score(self, dense: np.ndarray, ids: np.ndarray, lengths,
+                     ragged: bool) -> np.ndarray:
+        """A request's scores, one eager launch at a time."""
+        with span("meepo.serve.inputs"):
+            ids_t = None if ragged else torch.from_numpy(ids).to(self.device)
+            dense_t = torch.from_numpy(dense).to(self.device)
+        bag_valid, shape = None, ids.shape
+        if ragged:
+            rows, shape = self._pooled(ids, lengths)
+        else:
+            rows = self.table.lookup(ids_t.reshape(-1), train=False)
+            if ids.ndim == 3:
+                bag_valid = hashing.is_valid(*hashing.split_ids_t(ids_t))
+        p = self._forward(dense_t, rows, shape, bag_valid)
+        with span("meepo.serve.readback_sync"):
+            return p.cpu().numpy()
+
+    def _forward(self, dense_t, rows, shape, bag_valid=None) -> torch.Tensor:
+        """The tower's scores of the looked-up rows: its input, its forward
+        and the sigmoid."""
+        with span("meepo.tower.forward"):
+            emb = model_inputs(self.model, rows, shape, bag_valid, self.table_cfg.dim,
+                               self.model_cfg.combiner)
+            return torch.sigmoid(model_apply(self.model, dense_t, emb, bag_valid))
+
+    def _takes_graph(self, dense: np.ndarray, ids: np.ndarray) -> bool:
+        """Whether a request runs as its bucket's graph: one-hot ids, the
+        dynamic table, a card, and inputs of one batch at the tower's
+        widths. A malformed request goes the eager way, and fails there."""
+        mc = self.model_cfg
+        return (self.device.type == "cuda" and isinstance(self.table, DynamicEmbeddingTable)
+                and ids.ndim == 2 and dense.ndim == 2 and 0 < len(ids) == len(dense)
+                and ids.shape[1] == mc.num_sparse_features
+                and dense.shape[1] == mc.num_dense_features)
+
+    def _graph_score(self, dense: np.ndarray, ids: np.ndarray):
+        """A one-hot request's scores from a replay of its bucket's graph,
+        captured on the bucket's first request; None where the bucket cannot
+        be captured, for the caller to answer eagerly."""
+        key = (request_bucket(len(ids)), ids.shape[1], dense.shape[1])
+        graphs = self._current_graphs()
+        fresh = key not in graphs
+        if fresh:
+            graphs[key] = _RequestGraph(*key, self.device)
+        g = graphs[key]
+        if g is None:
+            return None
+        with span("meepo.serve.graph"):
+            g.load(dense, ids)
+            if fresh and not self._capture(g):
+                graphs[key] = None
+                return None
+            g.graph.replay()
+        with span("meepo.serve.readback_sync"):
+            out = g.out[:len(ids)].cpu().numpy()
+        if fresh:
+            self.graph_captures += 1
+        else:
+            self.graph_replays += 1
+        return out
+
+    def _current_graphs(self) -> dict:
+        """The graphs of the table, shard and tower served now. A graph holds
+        their planes' and weights' addresses, so where `reload`, the table's
+        `load` or its growth replaced any of them, the old graphs go and the
+        next requests capture anew."""
+        live = (self.table, self.table.shard, self.model)
+        if self._graph_of is None or any(r() is not o for r, o in zip(self._graph_of, live)):
+            self._graphs, self._graph_pool = {}, torch.cuda.graph_pool_handle()
+            self._graph_of = tuple(weakref.ref(o) for o in live)
+        return self._graphs
+
+    def _capture(self, g: _RequestGraph) -> bool:
+        """Capture the one-hot request's device chain on the loaded inputs of
+        `g`, after one eager run on the capture stream, as capture requires.
+        False, with the error logged, where the chain cannot be captured."""
+        def chain():
+            return self._forward(g.dense, self.table.lookup(g.ids, train=False), g.shape)
+
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        try:
+            # the outer context gives the current stream back where the
+            # capture fails, which `torch.cuda.graph` alone does not
+            with torch.cuda.stream(stream):
+                chain()
+                with torch.cuda.graph(g.graph, pool=self._graph_pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    g.out = chain()
+        except Exception:  # a forward that cannot be captured still answers, eagerly
+            log.exception("scoring: the request of %d candidates cannot be captured as a "
+                          "CUDA graph; its bucket runs eagerly", g.shape[0])
+            # a failed capture may leave its stream allocating from its pool:
+            # later captures take a new pool
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            return False
+        return True
 
     def _pooled(self, ids: np.ndarray, lengths):
         """The ragged bags' pooled rows [B * S, dim] and (B, S): the valid
@@ -152,6 +305,9 @@ class ScoringService:
             "# TYPE meepo_requests_total counter",
             f"meepo_requests_total {self._requests}",
         ]
+        for name in ("graph_replays", "graph_captures", "eager_requests"):
+            lines.append(f"# TYPE meepo_{name}_total counter")
+            lines.append(f"meepo_{name}_total {getattr(self, name)}")
         # a QuantizedTable keeps no counters
         for name, v in getattr(self.table, "counters", dict)().items():
             lines.append(f"# TYPE meepo_table_{name}_total counter")
@@ -244,16 +400,7 @@ def make_http_server(service: ScoringService, port: int,
                 ids = np.asarray(req["ids"], np.int64)
                 if dense.ndim != 2 or ids.ndim not in (2, 3) or len(dense) != len(ids):
                     raise ValueError(f"dense {dense.shape} / ids {ids.shape} mismatch")
-                # pad the batch to the next power of two, as the reference does
-                # to bound its compiled shapes; padded rows score and are cut
-                b = len(dense)
-                bp = 1 << max(0, (b - 1).bit_length())
-                if bp != b:
-                    dense = np.concatenate(
-                        [dense, np.zeros((bp - b,) + dense.shape[1:], np.float32)])
-                    pad = np.full((bp - b,) + ids.shape[1:], hashing.EMPTY_ID, np.int64)
-                    ids = np.concatenate([ids, pad])
-                scores = service.score(dense, ids)[:b]
+                scores = service.score(dense, ids)
                 self._reply(200, {"scores": np.round(scores, 6).tolist()})
             except Exception as e:  # a malformed request must not stop serving
                 self._reply(400, {"error": str(e)})

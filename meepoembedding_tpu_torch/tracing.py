@@ -52,6 +52,9 @@ end in `_sync`.
   meepo.serve.queue         waiting for the service's lock
   meepo.serve.inputs        a request's host-to-device copies
   meepo.serve.ragged        a request's ragged bags: as meepo.train.ragged
+  meepo.serve.graph         a one-hot request on a card: its padded copy in
+                            and the replay of its bucket's CUDA graph (on
+                            the bucket's first request, the capture too)
   meepo.serve.readback_sync the scores' copy to the host
 """
 

@@ -27,6 +27,7 @@ from meepoembedding_tpu.table.runtime import DynamicEmbeddingTable as JTable
 from meepoembedding_tpu_torch import ScoringService, make_http_server
 from meepoembedding_tpu_torch.config import ModelConfig, TableConfig
 from meepoembedding_tpu_torch.models import build_model
+from meepoembedding_tpu_torch.serving import pad_request, request_bucket
 from meepoembedding_tpu_torch.weights import from_jax_params
 
 torch.set_num_threads(1)
@@ -84,6 +85,56 @@ def test_scores_match_jax(ckpt, combiner):
             got = tsvc.score(dense, x)
             assert got.shape == (b,) and got.dtype == np.float32
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_request_bucket_and_padding():
+    assert [request_bucket(c) for c in (1, 2, 3, 128, 129, 700, 2048)] == [
+        1, 2, 4, 128, 256, 1024, 2048]
+    rng = np.random.default_rng(2)
+    dense = rng.normal(size=(5, 4)).astype(np.float32)
+    ids = rng.integers(0, 2**40, size=(5, 3))
+    dense_out = np.full((8, 4), np.nan, np.float32)
+    ids_out = np.full((8, 3), 7, np.int64)
+    pad_request(dense, ids, dense_out, ids_out)
+    np.testing.assert_array_equal(dense_out, np.concatenate([dense, np.zeros((3, 4))]))
+    np.testing.assert_array_equal(ids_out[:5], ids)
+    assert (ids_out[5:] == jh.EMPTY_ID).all()
+
+
+def test_cpu_service_never_takes_the_graph_path(ckpt):
+    """On the CPU every request is eager: no graph captured or replayed, and
+    the scores are the tower's over the probe-only rows."""
+    path, ids = ckpt
+    svc = ScoringService(path, TableConfig(**TABLE), ModelConfig(**MODEL), device="cpu")
+    rng = np.random.default_rng(4)
+    for b in (4, 5, 4):
+        dense, onehot, bags = _requests(ids, rng, b)
+        got = svc.score(dense, onehot)
+        with torch.no_grad():
+            rows = svc.table.lookup(onehot.reshape(-1), train=False).view(b, 3, 8)
+            want = torch.sigmoid(svc.model(torch.from_numpy(dense), rows)).numpy()
+        np.testing.assert_array_equal(got, want)
+        svc.score(dense, bags)
+    assert (svc.graph_replays, svc.graph_captures, svc.eager_requests) == (0, 0, 6)
+    text = svc.metrics_text()
+    for line in ("meepo_graph_replays_total 0", "meepo_graph_captures_total 0",
+                 "meepo_eager_requests_total 6", "meepo_requests_total 6"):
+        assert line in text
+
+
+def test_only_a_request_at_the_towers_widths_takes_the_graph_path(ckpt, monkeypatch):
+    """A one-hot request of another number of sparse or dense features than
+    the tower's goes the eager way (and fails there), so that it never
+    allocates, captures or caches a graph. The test reads shapes and the
+    device only, so a CPU service that says it is on a card stands in."""
+    path, ids = ckpt
+    svc = ScoringService(path, TableConfig(**TABLE), ModelConfig(**MODEL), device="cpu")
+    monkeypatch.setattr(svc, "device", torch.device("cuda"))
+    dense, onehot, bags = _requests(ids, np.random.default_rng(6), 5)
+    assert svc._takes_graph(dense, onehot)
+    for d, i in ((dense, bags), (dense, onehot[:, :2]), (dense[:, :3], onehot),
+                 (dense, np.concatenate([onehot, onehot], 1)), (dense[:4], onehot)):
+        assert not svc._takes_graph(d, i), (d.shape, i.shape)
 
 
 def test_from_jax_params_nested_and_flat():
