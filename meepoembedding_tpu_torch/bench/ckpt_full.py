@@ -66,8 +66,7 @@ def read_rows(spec: TableSpec, shard, hi, lo):
     """(rows, accumulators, found) of the ids (hi, lo): a probe, the values
     gather, the accumulator's gather of its flat plane."""
     pr = table_ops.probe(spec, shard, hi, lo, hashing.is_valid(hi, lo))
-    slot = torch.where(pr.found, pr.slot, -1)
-    rows = table_ops.lookup_rows(shard, slot)
+    rows = table_ops.lookup_rows(shard, pr.slot)
     acc = (row_gather(shard.opt_rowwise[0].view(-1, 1), pr.slot).view(-1)
            if shard.opt_rowwise else torch.zeros_like(hi, dtype=torch.float32))
     return rows, acc, pr.found

@@ -108,7 +108,7 @@ def run(device="cuda", cap=None, batch=None, dim=None) -> dict:
         timeit(next(names), dedup.unique_pairs, hi, lo, batch)
         pr = table_ops.probe(spec, shard, uniq.hi, uniq.lo, uniq.valid)
         timeit(next(names), table_ops.probe, spec, shard, uniq.hi, uniq.lo, uniq.valid)
-        slot = torch.where(pr.found, pr.slot, -1)
+        slot = pr.slot
         timeit(next(names), table_ops.lookup_train, spec, shard, uniq.hi, uniq.lo, uniq.valid,
                1)
         rows = table_ops.lookup_rows(shard, slot)

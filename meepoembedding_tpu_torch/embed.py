@@ -84,10 +84,9 @@ def lookup(spec: TableSpec, shard: TableShard, hi: torch.Tensor, lo: torch.Tenso
         lctx = table_ops.lookup_train(spec, shard, uniq.hi, uniq.lo, uniq.valid, int(step))
         slot, found, fresh, rows = lctx.slot, lctx.found, lctx.fresh, lctx.rows_u
     else:
-        pr = table_ops.probe(spec, shard, uniq.hi, uniq.lo, uniq.valid)
-        slot = torch.where(pr.found, pr.slot, -1)
-        found, fresh = pr.found, torch.zeros_like(pr.found)
-        rows = table_ops.lookup_rows(shard, slot).float()
+        rows, (slot, found) = table_ops.lookup_probe(spec, shard, uniq.hi, uniq.lo, uniq.valid)
+        fresh = torch.zeros_like(found)
+        rows = rows.float()
     rows_u = rows.detach().requires_grad_(True)
     ctx = EmbedCtx(slot, found, fresh, rows_u, uniq.inverse, uniq.count, uniq.order,
                    uniq.sorted_ids)

@@ -68,8 +68,7 @@ def entry(device="cuda"):
     def forward(shard, model, dense, hi, lo):
         b, s = hi.shape
         uniq = dedup.unique_pairs(hi.reshape(-1), lo.reshape(-1), b * s)
-        pr = table_ops.probe(spec, shard, uniq.hi, uniq.lo, uniq.valid)
-        rows = table_ops.lookup_rows(shard, torch.where(pr.found, pr.slot, -1))
+        rows, _ = table_ops.lookup_probe(spec, shard, uniq.hi, uniq.lo, uniq.valid)
         emb = row_gather(rows, uniq.inverse).reshape(b, s, spec.dim)
         return model_apply(model, dense, emb)
 

@@ -257,12 +257,8 @@ class GroupTrainer:
         with torch.no_grad():
             for n, g in zip(self.names, grads):
                 optim.apply_sparse_grads_ctx(self.specs[n], self.shards[n], ctxs[n], g)
-            g_dense = list(grads[len(self.names):])
-            if rc.grad_clip_norm is not None:
-                g_dense = optim.clip_by_global_norm(g_dense, rc.grad_clip_norm)
-            lr = optim.schedule_lr(rc.lr_schedule, rc.dense_learning_rate, self.step, rc.steps,
-                                   rc.warmup_steps)
-            self.opt_state = optim.dense_adam_update(self.params, g_dense, self.opt_state, lr)
+            self.opt_state = optim.dense_step(rc, self.params, list(grads[len(self.names):]),
+                                              self.opt_state, optim.scheduled_lr(rc, self.step))
         self.step += 1
         self.last_logits = logits.detach()
         self.auc.update(self.last_logits, label)
@@ -278,8 +274,7 @@ class GroupTrainer:
         for n in self.names:
             spec, shard = self.specs[n], self.shards[n]
             h, bag_valid, uniq = self._member_ids(n, hi, lo, caps)
-            pr = table_ops.probe(spec, shard, uniq.hi, uniq.lo, uniq.valid)
-            rows = table_ops.lookup_rows(shard, torch.where(pr.found, pr.slot, -1))
+            rows, _ = table_ops.lookup_probe(spec, shard, uniq.hi, uniq.lo, uniq.valid)
             flat = dedup.GatherRows.apply(rows.float(), uniq.inverse, uniq.order,
                                           uniq.sorted_ids)
             per_table[n] = pooling.pool_or_reshape(flat, h.shape, bag_valid, spec.dim,
@@ -550,11 +545,8 @@ class ShardedGroupTrainer(GroupTrainer):
                                         xcaps[n])
             *g_dense, loss, drops = sum_over_ranks([*grads[len(self.names):], loss, drops],
                                                    self.mesh)
-            if rc.grad_clip_norm is not None:
-                g_dense = optim.clip_by_global_norm(g_dense, rc.grad_clip_norm)
-            lr = optim.schedule_lr(rc.lr_schedule, rc.dense_learning_rate, self.step, rc.steps,
-                                   rc.warmup_steps)
-            self.opt_state = optim.dense_adam_update(self.params, g_dense, self.opt_state, lr)
+            self.opt_state = optim.dense_step(rc, self.params, g_dense, self.opt_state,
+                                              optim.scheduled_lr(rc, self.step))
         self.step += 1
         self._pending.append({
             "step": self.step - 1, "loss": loss, "drops": drops, "logits": logits.detach(),

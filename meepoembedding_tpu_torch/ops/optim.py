@@ -212,3 +212,19 @@ def schedule_lr(kind: str, base_lr: float, step: int, total_steps: int,
     elif kind == "cosine":
         scale = f32(scale * f32(0.5) * (f32(1.0) + f32(np.cos(f32(math.pi) * frac))))
     return float(f32(base_lr) * f32(scale))
+
+
+def scheduled_lr(rc, step: int) -> float:
+    """The dense tower's rate at `step` under the run's `lr_schedule`."""
+    return schedule_lr(rc.lr_schedule, rc.dense_learning_rate, step, rc.steps, rc.warmup_steps)
+
+
+def dense_step(run_cfg, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+               state, lr: float):
+    """The dense half of a training step: the grads clipped by the run's
+    `grad_clip_norm` where it is set, then the dense Adam at `lr`, in place.
+    Returns the new state. Both calls go through this module's attributes,
+    so that a wrapper set on them sees every trainer's step."""
+    if run_cfg.grad_clip_norm is not None:
+        grads = clip_by_global_norm(grads, run_cfg.grad_clip_norm)
+    return dense_adam_update(params, grads, state, lr)

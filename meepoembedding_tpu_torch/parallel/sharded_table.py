@@ -142,11 +142,10 @@ def owner_lookup(spec: TableSpec, shard: TableShard, rhi, rlo, step: int, train:
         lctx = table_ops.lookup_train(spec, shard, runiq.hi, runiq.lo, runiq.valid, step)
         rows = row_gather(lctx.rows_u.to(spec.dtype).contiguous(), runiq.inverse)
         return rows, runiq, lctx, lctx.found
-    pr = table_ops.probe(spec, shard, runiq.hi, runiq.lo, runiq.valid)
-    slot = torch.where(pr.found, pr.slot, -1)
     # one gather of the values plane, straight in received order
-    rows = table_ops.lookup_rows(shard, slot[runiq.inverse.long()])
-    return rows, runiq, slot, pr.found
+    rows, pr = table_ops.lookup_probe(spec, shard, runiq.hi, runiq.lo, runiq.valid,
+                                      order=runiq.inverse)
+    return rows, runiq, pr.slot, pr.found
 
 
 def exchange_lookup(spec: TableSpec, shard: TableShard, uh, ul, valid, step: int,
@@ -171,9 +170,8 @@ def exchange_lookup(spec: TableSpec, shard: TableShard, uh, ul, valid, step: int
             lctx = table_ops.lookup_train(spec, shard, uh, ul, valid, step)
             found, emb_u = lctx.found, lctx.rows_u
         else:
-            pr = table_ops.probe(spec, shard, uh, ul, valid)
-            lctx = torch.where(pr.found, pr.slot, -1)
-            found, emb_u = pr.found, table_ops.lookup_rows(shard, lctx).float()
+            rows, (lctx, found) = table_ops.lookup_probe(spec, shard, uh, ul, valid)
+            emb_u = rows.float()
         return emb_u, RouteCtx(owner=zero, pos=ar, ok=valid, lctx=lctx, inverse=ar,
                                order=ar.long(), sorted_ids=ar, miss_hi=uh, miss_lo=ul,
                                miss=valid & ~found, n_drop=zero.new_zeros(()))

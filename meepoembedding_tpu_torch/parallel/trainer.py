@@ -224,9 +224,7 @@ class ShardedTrainer:
     _g2_mean = None  # the rowwise accumulator's hook (`optim.apply_sparse_grads_ctx`)
 
     def _dense_lr(self) -> float:
-        rc = self.run_cfg
-        return optim.schedule_lr(rc.lr_schedule, rc.dense_learning_rate, self.step, rc.steps,
-                                 rc.warmup_steps)
+        return optim.scheduled_lr(self.run_cfg, self.step)
 
     # --- the exchange's geometry ---------------------------------------------
     def _cap(self) -> int:
@@ -289,10 +287,8 @@ class ShardedTrainer:
             st.exchange_apply_grads(spec, self.shard, ctx, self._own_block(g_rows), mesh, cap,
                                     g2_mean=self._g2_mean)
             *g_dense, loss, drops = sum_over_ranks([*g_dense, loss, ctx.n_drop], mesh)
-            if rc.grad_clip_norm is not None:
-                g_dense = optim.clip_by_global_norm(g_dense, rc.grad_clip_norm)
-            self.opt_state = optim.dense_adam_update(self.params, g_dense, self.opt_state,
-                                                     self._dense_lr())
+            self.opt_state = optim.dense_step(rc, self.params, g_dense, self.opt_state,
+                                              self._dense_lr())
         self.step += 1
         self._pending.append({"step": self.step - 1, "loss": loss, "drops": drops,
                               "logits": logits.detach(), "labels": label,

@@ -58,8 +58,8 @@ log = logging.getLogger(__name__)
 
 
 def request_bucket(c: int) -> int:
-    """The candidates a request of `c` pads to on the graph path: the next
-    power of two, at least 1."""
+    """The size a batch of `c` pads to: the next power of two, at least 1
+    (a one-hot request's candidates on the graph path)."""
     return 1 << max(0, (c - 1).bit_length())
 
 
@@ -74,6 +74,17 @@ def pad_request(dense: np.ndarray, ids: np.ndarray, dense_out: np.ndarray,
     dense_out[c:] = 0
     ids_out[:c] = ids
     ids_out[c:] = hashing.EMPTY_ID
+
+
+def tower_scores(svc, dense_t, rows, shape, ids_t=None) -> torch.Tensor:
+    """A scoring service's scores of the looked-up rows ([n, dim], the ids
+    of `shape` in order): the tower's input, its forward and the sigmoid.
+    Padded bags ([B, S, L] `shape`) take their validity from `ids_t`."""
+    bag_valid = hashing.is_valid(*hashing.split_ids_t(ids_t)) if len(shape) == 3 else None
+    with span("meepo.tower.forward"):
+        emb = model_inputs(svc.model, rows, shape, bag_valid, svc.table_cfg.dim,
+                           svc.model_cfg.combiner)
+        return torch.sigmoid(model_apply(svc.model, dense_t, emb, bag_valid))
 
 
 class _RequestGraph:
@@ -180,24 +191,13 @@ class ScoringService:
         with span("meepo.serve.inputs"):
             ids_t = None if ragged else torch.from_numpy(ids).to(self.device)
             dense_t = torch.from_numpy(dense).to(self.device)
-        bag_valid, shape = None, ids.shape
         if ragged:
             rows, shape = self._pooled(ids, lengths)
         else:
-            rows = self.table.lookup(ids_t.reshape(-1), train=False)
-            if ids.ndim == 3:
-                bag_valid = hashing.is_valid(*hashing.split_ids_t(ids_t))
-        p = self._forward(dense_t, rows, shape, bag_valid)
+            rows, shape = self.table.lookup(ids_t.reshape(-1), train=False), ids.shape
+        p = tower_scores(self, dense_t, rows, shape, ids_t)
         with span("meepo.serve.readback_sync"):
             return p.cpu().numpy()
-
-    def _forward(self, dense_t, rows, shape, bag_valid=None) -> torch.Tensor:
-        """The tower's scores of the looked-up rows: its input, its forward
-        and the sigmoid."""
-        with span("meepo.tower.forward"):
-            emb = model_inputs(self.model, rows, shape, bag_valid, self.table_cfg.dim,
-                               self.model_cfg.combiner)
-            return torch.sigmoid(model_apply(self.model, dense_t, emb, bag_valid))
 
     def _takes_graph(self, dense: np.ndarray, ids: np.ndarray) -> bool:
         """Whether a request runs as its bucket's graph: one-hot ids, the
@@ -251,7 +251,7 @@ class ScoringService:
         `g`, after one eager run on the capture stream, as capture requires.
         False, with the error logged, where the chain cannot be captured."""
         def chain():
-            return self._forward(g.dense, self.table.lookup(g.ids, train=False), g.shape)
+            return tower_scores(self, g.dense, self.table.lookup(g.ids, train=False), g.shape)
 
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))

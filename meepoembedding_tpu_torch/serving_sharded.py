@@ -38,18 +38,14 @@ import torch.distributed as dist
 
 from meepoembedding_tpu_torch import checkpoint
 from meepoembedding_tpu_torch.models import build_model
-from meepoembedding_tpu_torch.models.common import model_apply, model_inputs
 from meepoembedding_tpu_torch.ops import dedup
 from meepoembedding_tpu_torch.parallel import sharded_table as st
 from meepoembedding_tpu_torch.parallel.mesh import Mesh, make_mesh
 from meepoembedding_tpu_torch.parallel.trainer import SHARDED_COUNTER_NAMES, sum_ints
+from meepoembedding_tpu_torch.serving import request_bucket, tower_scores
 from meepoembedding_tpu_torch.table import hashing
 from meepoembedding_tpu_torch.table.layout import TableSpec
 from meepoembedding_tpu_torch.weights import from_jax_params
-
-
-def _pow2(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
 
 
 class ShardedScoringService:
@@ -124,20 +120,15 @@ class ShardedScoringService:
         t0 = time.perf_counter()
         with self._lock, torch.no_grad():
             b = len(dense)
-            bp = _pow2(b)
+            bp = request_bucket(b)
             if bp != b:
                 dense = np.concatenate([dense, np.zeros((bp - b,) + dense.shape[1:], np.float32)])
                 ids = np.concatenate(
                     [ids, np.full((bp - b,) + ids.shape[1:], hashing.EMPTY_ID, np.int64)])
             rows, drops = self._exchange(ids.reshape(-1))
-            bag_valid = None
-            if ids.ndim == 3:
-                bag_valid = hashing.is_valid(*hashing.split_ids_t(torch.from_numpy(ids)
-                                                                  .to(self.device)))
-            emb = model_inputs(self.model, rows, ids.shape, bag_valid, self.spec.dim,
-                               self.model_cfg.combiner)
             dense_t = torch.from_numpy(dense).to(self.device)
-            out = torch.sigmoid(model_apply(self.model, dense_t, emb, bag_valid)).cpu().numpy()
+            ids_t = torch.from_numpy(ids).to(self.device) if ids.ndim == 3 else None
+            out = tower_scores(self, dense_t, rows, ids.shape, ids_t).cpu().numpy()
             self.route_drops += drops
             self._requests += 1
             self._lat_ms.append((time.perf_counter() - t0) * 1e3)
@@ -159,7 +150,7 @@ class ShardedScoringService:
             raise ValueError("sharded serving is probe-only")
         ids = np.asarray(ids64, np.int64).reshape(-1)
         n = len(ids)
-        ids_p = np.full((_pow2(n),), hashing.EMPTY_ID, np.int64)
+        ids_p = np.full((request_bucket(n),), hashing.EMPTY_ID, np.int64)
         ids_p[:n] = ids
         with self._lock, torch.no_grad():
             rows, drops = self._exchange(ids_p)
@@ -241,7 +232,7 @@ class ReloadRefused(ValueError):
 def _split(b: int, S: int) -> int:
     """Rows a rank of a global batch of b: next_pow2(ceil(b / S)), as the
     reference's `_pad_batch`; the batch pads to that times S."""
-    return _pow2(-(-b // S))
+    return request_bucket(-(-b // S))
 
 
 class LockstepFront:

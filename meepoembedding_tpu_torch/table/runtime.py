@@ -191,9 +191,7 @@ class DynamicEmbeddingTable:
         ids, n, npad = self._padded(ids64)
         hi, lo = hashing.split_ids_t(ids)
         uniq = dedup.unique_pairs(hi, lo, size=npad)
-        pr = table_ops.probe(self.spec, self.shard, uniq.hi, uniq.lo, uniq.valid)
-        with span("meepo.table.gather"):
-            rows = table_ops.lookup_rows(self.shard, torch.where(pr.found, pr.slot, -1))
+        rows, _ = table_ops.lookup_probe(self.spec, self.shard, uniq.hi, uniq.lo, uniq.valid)
         return rows, uniq.inverse[:n]
 
     def _apply_promotions(self) -> None:

@@ -9,6 +9,8 @@ the serving, training and lifecycle paths).
   insert_rows        bulk upsert (restore, `table.assign`): probe, plan, then
                      row sets into every plane, in place.
   lookup_rows        found-row gather from the values plane.
+  lookup_probe       the probe-only read: probe, then one gather of the
+                     found rows (zero rows for absent and invalid keys).
   cms_admit          count-min-sketch frequency admission.
   lookup_train       the training lookup: probe, admission, insert planning
                      and the side-plane writes of fresh keys, with the rows
@@ -190,6 +192,18 @@ def lookup_rows(shard: TableShard, slot: torch.Tensor) -> torch.Tensor:
     """[n] slots -> [n, dim] embedding rows; slots < 0 -> zero rows."""
     rows = gather_values(shard.values, slot)
     return rows.masked_fill_((slot < 0)[:, None], 0)
+
+
+def lookup_probe(spec: TableSpec, shard: TableShard, uh, ul, valid,
+                 order: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ProbeResult]:
+    """Probe-only read of (deduped) keys, inserting nothing: (rows [n, dim]
+    in the table's type, the probe). Absent and invalid keys read zero rows,
+    since the probe gives them slot -1. With `order` ([m] indices into the
+    keys) the rows are those of keys[order], in one gather all the same."""
+    pr = probe(spec, shard, uh, ul, valid)
+    with span("meepo.table.gather"):
+        rows = lookup_rows(shard, pr.slot if order is None else pr.slot[order.long()])
+    return rows, pr
 
 
 def set_index(slot: torch.Tensor, enabled: torch.Tensor) -> torch.Tensor:

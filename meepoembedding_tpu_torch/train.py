@@ -176,12 +176,8 @@ class Trainer:
         with torch.no_grad():
             optim.apply_sparse_grads_ctx(spec, self.shard, ctx, g_rows)
             with span("meepo.tower.update"):
-                if rc.grad_clip_norm is not None:
-                    g_dense = optim.clip_by_global_norm(g_dense, rc.grad_clip_norm)
-                lr = optim.schedule_lr(rc.lr_schedule, rc.dense_learning_rate, self.step,
-                                       rc.steps, rc.warmup_steps)
-                self.opt_state = optim.dense_adam_update(self.params, g_dense, self.opt_state,
-                                                         lr)
+                self.opt_state = optim.dense_step(rc, self.params, g_dense, self.opt_state,
+                                                  optim.scheduled_lr(rc, self.step))
         self.step += 1
         with span("meepo.train.metrics"):
             self.last_logits = logits.detach()
@@ -195,8 +191,7 @@ class Trainer:
         and nothing is inserted. Returns {"loss": float, "logits": [B]}."""
         spec = self.spec
         shape, dense, label, uniq, bag_valid, ikey, bags = self._inputs(batch)
-        pr = table_ops.probe(spec, self.shard, uniq.hi, uniq.lo, uniq.valid)
-        rows = table_ops.lookup_rows(self.shard, torch.where(pr.found, pr.slot, -1))
+        rows, _ = table_ops.lookup_probe(spec, self.shard, uniq.hi, uniq.lo, uniq.valid)
         flat = dedup.GatherRows.apply(rows.float(), uniq.inverse, uniq.order,
                                       uniq.sorted_ids, bags)
         emb = model_inputs(self.model, flat, shape, bag_valid, spec.dim, self.model_cfg.combiner)

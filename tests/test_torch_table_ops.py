@@ -150,3 +150,45 @@ def test_bf16_values_plane_matches():
     all_slots = jnp.arange(jspec.capacity, dtype=jnp.int32)
     want = np.asarray(jx.gather_values(jspec, jshard.values, all_slots)).view(np.int16)
     np.testing.assert_array_equal(tshard.values.view(torch.int16).numpy(), want)
+
+
+@pytest.mark.parametrize("in_order", [False, True], ids=["keys", "received_order"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lookup_probe_matches(dtype, in_order):
+    """`lookup_probe` against the reference's probe and a take of its values
+    plane, on one table: keys present, absent (never inserted) and invalid
+    padding; with `in_order`, the rows come back
+    in the sharded owner's received order (indices with repeats)."""
+    jspec, tspec = (dataclasses.replace(s, value_dtype=dtype) for s in _specs())
+    tshard = tl.alloc_shard(tspec, "cpu")
+    offered = []
+    for step, (ids, rows, *_rest) in enumerate(_batches(seed=11, nbatch=3)):
+        hi, lo = jh.split_ids(ids)
+        tx.insert_rows(tspec, tshard, torch.from_numpy(hi), torch.from_numpy(lo),
+                       torch.from_numpy(rows), torch.from_numpy(jh.is_valid(hi, lo)), step)
+        offered.append(ids)
+    jshard = jl.alloc_shard(jspec)._replace(
+        key_hi=jnp.asarray(tshard.key_hi.numpy()), key_lo=jnp.asarray(tshard.key_lo.numpy()))
+    rng = np.random.default_rng(5)
+    ids = np.unique(np.concatenate(offered + [rng.integers(1, 2**62, 300, dtype=np.int64)]))
+    ids = rng.permutation(np.concatenate([ids, np.full(64, jh.EMPTY_ID, np.int64)]))
+    hi, lo = jh.split_ids(ids)
+    valid = jh.is_valid(hi, lo)
+    order = rng.integers(0, len(ids), 3 * len(ids)) if in_order else np.arange(len(ids))
+
+    jp = jx.probe(jspec, jshard, jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(valid))
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32
+    plane = tshard.values.view(bits).numpy()  # the reference's plane, as [capacity, dim]
+    jslot = jnp.asarray(jp.slot)[order]
+    want = jnp.where((jslot >= 0)[:, None], jnp.take(jnp.asarray(plane), jnp.clip(jslot, 0),
+                                                     axis=0), 0)
+    rows, pr = tx.lookup_probe(tspec, tshard, torch.from_numpy(hi), torch.from_numpy(lo),
+                               torch.from_numpy(valid),
+                               order=torch.from_numpy(order) if in_order else None)
+    np.testing.assert_array_equal(pr.slot.numpy(), np.asarray(jp.slot))
+    np.testing.assert_array_equal(pr.found.numpy(), np.asarray(jp.found))
+    assert rows.dtype == tshard.values.dtype and rows.shape == (len(order), DIM)
+    np.testing.assert_array_equal(rows.view(bits).numpy(), np.asarray(want))
+    found = np.asarray(jp.found)[order]
+    assert found.any() and (~found & valid[order]).any() and (~valid[order]).any()
+    assert not rows[torch.from_numpy(~found)].any()

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import collections
 import json
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -125,3 +127,38 @@ def test_a_request_nests_the_serve_spans(setup, tmp_path):
                   "meepo.table.probe", "meepo.table.gather", "meepo.tower.forward",
                   "meepo.serve.readback_sync"):
         assert _holds(spans, "meepo.serve.request", inner), inner
+
+
+def test_every_benchmark_layer_hook_is_entered(monkeypatch):
+    """The benchmark's traced run puts device time down to a layer through
+    the module attributes that `instrument.annotate` wraps. One step with a
+    clip norm, so that every wrapped call is on the path, must enter each
+    of them: a step that bypasses one would leave its layer's time unread."""
+    bench = str(Path(__file__).resolve().parents[1] / "benchmark")
+    if bench not in sys.path:
+        monkeypatch.syspath_prepend(bench)
+    from harness import instrument
+
+    entered = collections.Counter()
+    wrap = instrument._wrap
+
+    def counting(fn, name):
+        inner = wrap(fn, name)
+
+        def call(*a, **k):
+            entered[fn.__qualname__] += 1
+            return inner(*a, **k)
+        return call
+
+    monkeypatch.setattr(instrument, "_wrap", counting)
+    targets, gather = instrument._targets()
+    want = {getattr(mod, attr).__qualname__ for mod, attr, _ in targets}
+    want |= {gather.forward.__qualname__, gather.backward.__qualname__}
+    mc = ModelConfig(num_dense_features=ND, num_sparse_features=S, embedding_dim=DIM,
+                     bottom_mlp=(16, DIM), top_mlp=(16, 1))
+    tr = Trainer(RunConfig(batch_size=B, grad_clip_norm=1.0),
+                 TableConfig(dim=DIM, capacity=1 << 12), mc, device="cpu")
+    with instrument.annotate():
+        tr.train_step(_batch(1, 7))
+    assert len(want) == len(targets) + 2
+    assert set(entered) == want, sorted(want - set(entered))

@@ -34,7 +34,7 @@ from meepoembedding_tpu.ops import optim as joptim
 from meepoembedding_tpu.table import hashing as jh
 from meepoembedding_tpu.table import layout as jl
 from meepoembedding_tpu.table import xla_ops as jx
-from meepoembedding_tpu_torch.config import OptimizerConfig, PolicyConfig, TableConfig
+from meepoembedding_tpu_torch.config import OptimizerConfig, PolicyConfig, RunConfig, TableConfig
 from meepoembedding_tpu_torch.ops import dedup, optim
 from meepoembedding_tpu_torch.table import hashing as th
 from meepoembedding_tpu_torch.table import layout as tl
@@ -259,3 +259,33 @@ def test_dense_optimizers_match():
             want = float(joptim.schedule_lr(kind, 0.01, step, 10, warmup_steps=4))
             np.testing.assert_allclose(optim.schedule_lr(kind, 0.01, step, 10, 4), want,
                                        rtol=1e-6)
+
+
+@pytest.mark.parametrize("schedule", ["constant", "cosine"])
+@pytest.mark.parametrize("clip", [None, 0.7])
+def test_dense_step_matches(clip, schedule):
+    """`optim.dense_step` at `optim.scheduled_lr`, three steps, against the
+    reference's clip, schedule and Adam as its trainers chain them."""
+    rc = RunConfig(steps=6, warmup_steps=2 if schedule != "constant" else 0,
+                   dense_learning_rate=0.05, lr_schedule=schedule, grad_clip_norm=clip)
+    rng = np.random.default_rng(13)
+    shapes = [(5, 3), (3,), (4, 2)]
+    params = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    tp, jp = [_t(p) for p in params], [jnp.asarray(p) for p in params]
+    tstate, jstate = optim.dense_adam_init(tp), joptim.dense_adam_init(jp)
+    for step in range(3):
+        grads = [rng.normal(size=s).astype(np.float32) for s in shapes]
+        lr = optim.scheduled_lr(rc, step)
+        want_lr = float(joptim.schedule_lr(schedule, 0.05, step, 6, rc.warmup_steps))
+        np.testing.assert_allclose(lr, want_lr, rtol=1e-6)
+        tstate = optim.dense_step(rc, tp, [_t(g) for g in grads], tstate, lr)
+        jg = [jnp.asarray(g) for g in grads]
+        if clip is not None:
+            jg = joptim.clip_by_global_norm(jg, clip)
+        jp, jstate = joptim.dense_adam_update(jp, jg, jstate, want_lr)
+    for a, b in zip(tp, jp):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    for a, b in zip(tstate[:2], jstate[:2]):
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x.numpy(), np.asarray(y), **TOL)
+    assert tstate[2] == int(jstate[2]) == 3
