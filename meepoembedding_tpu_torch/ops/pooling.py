@@ -132,6 +132,17 @@ def ragged_ids(ids, lengths, pin: bool = False) -> torch.Tensor:
     return torch.take(torch.from_numpy(ids), at.reshape(-1), out=out)
 
 
+def fixed_bag_ids(ids: np.ndarray, widths: tuple, out: torch.Tensor) -> torch.Tensor:
+    """`ragged_ids` of [C, S, L] int64 bags whose lengths are `widths` on
+    every row (each in [0, L], which the caller has checked), written into
+    `out`, a [C * sum(widths)] int64 CPU tensor, and returned: fixed-size
+    bags, which need no check of their lengths and no buffer of their own
+    (a scoring request's)."""
+    c, s, l = ids.shape
+    at = _slots(1 << max(0, c - 1).bit_length(), s, l, widths)[0][:c]
+    return torch.take(torch.from_numpy(ids), at.reshape(-1), out=out)
+
+
 def ragged_batch(ids, lengths, device, combiner: str):
     """[B, S, L] padded bags -> (their n valid ids on `device`, flat, bag by
     bag in the row-major order of [B, S]; their `Bags`). With `lengths`

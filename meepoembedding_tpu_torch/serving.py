@@ -21,8 +21,14 @@ On a card, a one-hot request ([C, S] ids) to the dynamic table runs as one
 captured CUDA graph: C pads to the next power of two (`request_bucket`,
 `pad_request`), and each padded size replays its own graph of the whole
 device chain (the ids' split, the dedup, the probe, the row gathers, the
-tower and the sigmoid) in place of some hundred eager launches. Every other
-request (bags, the int8 table, the CPU) runs eagerly, through the same
+tower and the sigmoid) in place of some hundred eager launches. So does a
+request of fixed-size multi-hot bags ([C, S, L] ids with `lengths`, every
+candidate's bags of one length a feature, as MLPerf's `multi_hot_sizes`
+makes them): its graph, one a padded size and set of bag lengths, holds the
+probe-only unique lookup, the bag pool and the tower, and a padded
+candidate's bags hold only the invalid id. Every other request (bags of
+differing lengths or without `lengths`, models that pool inside or key items
+by their bags, the int8 table, the CPU) runs eagerly, through the same
 functions.
 
 Not in the reference: multi-hot bags go the ragged way, as the trainer's
@@ -64,16 +70,29 @@ def request_bucket(c: int) -> int:
 
 
 def pad_request(dense: np.ndarray, ids: np.ndarray, dense_out: np.ndarray,
-                ids_out: np.ndarray) -> None:
+                ids_out: np.ndarray, widths: tuple | None = None) -> None:
     """Write a request's [C, ND] dense values and [C, S] (or [C, S, L]) ids
     into the first C rows of [Cp, ...] buffers, and zeros and the invalid id
     into the rest, as `DynamicEmbeddingTable._padded` pads a batch: a padded
-    candidate probes to zero rows and its score is cut off."""
+    candidate probes to zero rows and its score is cut off. With `widths`,
+    the length of every candidate's bag of each feature, a candidate's row
+    of `ids_out` [Cp, K] takes its bags' K ids as `pooling.ragged_ids`
+    gives them."""
     c = len(ids)
     dense_out[:c] = dense
     dense_out[c:] = 0
-    ids_out[:c] = ids
+    if widths is None:
+        ids_out[:c] = ids
+    else:
+        pooling.fixed_bag_ids(ids, widths, torch.from_numpy(ids_out[:c].reshape(-1)))
     ids_out[c:] = hashing.EMPTY_ID
+
+
+def fixed_bags(cp: int, widths: tuple, device, combiner: str) -> pooling.Bags:
+    """The `Bags` of Cp candidates whose feature s has bags of widths[s]
+    ids, the padded candidates' too: a request's of its padded size."""
+    lengths = np.repeat(np.asarray(widths, np.int32)[None, :], cp, axis=0)
+    return pooling.bags_on(lengths, cp * sum(widths), device, combiner)
 
 
 def tower_scores(svc, dense_t, rows, shape, ids_t=None) -> torch.Tensor:
@@ -89,16 +108,24 @@ def tower_scores(svc, dense_t, rows, shape, ids_t=None) -> torch.Tensor:
 
 class _RequestGraph:
     """One bucket's captured request: pinned host inputs, their device
-    copies, the graph and its [Cp] output (in the service's graph pool)."""
+    copies, the graph and its [Cp] output (in the service's graph pool).
+    One-hot ids are [Cp, S]. Fixed-size bags (`widths`, each feature's bag
+    length) are K ids a candidate, bag by bag, in a device buffer that the
+    invalid id pads on to the table's power-of-two length, so that the
+    lookup adds no padding of its own; their `bags` are built once."""
 
-    def __init__(self, cp: int, num_sparse: int, num_dense: int, device: torch.device):
-        self.shape = (cp, num_sparse)
-        ids_host = torch.empty(self.shape, dtype=torch.int64, pin_memory=True)
+    def __init__(self, cp: int, num_sparse: int, num_dense: int, device: torch.device,
+                 widths: tuple | None = None, combiner: str = "sum"):
+        self.shape, self.widths = (cp, num_sparse), widths
+        self.bags = None if widths is None else fixed_bags(cp, widths, device, combiner)
+        n = cp * (num_sparse if widths is None else sum(widths))
+        ids_host = torch.empty((cp, n // cp), dtype=torch.int64, pin_memory=True)
         dense_host = torch.empty((cp, num_dense), dtype=torch.float32, pin_memory=True)
         self.host = (dense_host, ids_host.view(-1))
         self.host_np = (dense_host.numpy(), ids_host.numpy())
         self.dense = torch.empty((cp, num_dense), dtype=torch.float32, device=device)
-        self.ids = torch.empty((cp * num_sparse,), dtype=torch.int64, device=device)
+        self.ids = torch.full((n if widths is None else request_bucket(n),), hashing.EMPTY_ID,
+                              dtype=torch.int64, device=device)
         self.graph = torch.cuda.CUDAGraph()
         self.out = None
 
@@ -106,16 +133,21 @@ class _RequestGraph:
         """The request into the device inputs, padded (`pad_request`). The
         pinned buffers are free again: the last request's read-back waited
         for every copy before it."""
-        pad_request(dense, ids, *self.host_np)
+        if self.bags is None:
+            pad_request(dense, ids, *self.host_np)
+        else:
+            with span("meepo.serve.ragged"):
+                pad_request(dense, ids, *self.host_np, self.widths)
         self.dense.copy_(self.host[0], non_blocking=True)
-        self.ids.copy_(self.host[1], non_blocking=True)
+        self.ids[:self.host[1].shape[0]].copy_(self.host[1], non_blocking=True)
 
 
 class ScoringService:
     """`graph_replays`, `graph_captures` and `eager_requests` count the
     answered requests by path: a replay of a bucket's graph, the request
-    that captured it, or the eager one (bags, int8, the CPU, a bucket whose
-    capture failed)."""
+    that captured it, or the eager one (bags of differing lengths or without
+    `lengths`, models that pool inside or key items by bags, int8, the CPU,
+    a bucket whose capture failed)."""
 
     def __init__(self, ckpt_path: str, table_cfg, model_cfg, quantize: str = "none",
                  device="cuda"):
@@ -131,8 +163,9 @@ class ScoringService:
         self._lat_ms: list = []  # ring of recent scoring latencies
         self._requests = 0
         self.graph_replays = self.graph_captures = self.eager_requests = 0
-        # (bucket, S, ND) -> _RequestGraph, or None where its capture failed;
-        # captured on the objects `_graph_of` refers to, in one pool
+        # (bucket, S, ND) of one-hot requests and (bucket, ND, bag lengths)
+        # of fixed-size bags -> _RequestGraph, or None where its capture
+        # failed; captured on the objects `_graph_of` refers to, in one pool
         self._graphs: dict = {}
         self._graph_of = self._graph_pool = None
 
@@ -173,7 +206,8 @@ class ScoringService:
                 self._lock.acquire()
             try:
                 with torch.no_grad():
-                    out = self._graph_score(dense, ids) if self._takes_graph(dense, ids) else None
+                    key = self._graph_key(dense, ids, lengths)
+                    out = None if key is None else self._graph_score(key, dense, ids)
                     if out is None:
                         out = self._eager_score(dense, ids, lengths, ragged)
                         self.eager_requests += 1
@@ -199,25 +233,47 @@ class ScoringService:
         with span("meepo.serve.readback_sync"):
             return p.cpu().numpy()
 
-    def _takes_graph(self, dense: np.ndarray, ids: np.ndarray) -> bool:
-        """Whether a request runs as its bucket's graph: one-hot ids, the
-        dynamic table, a card, and inputs of one batch at the tower's
-        widths. A malformed request goes the eager way, and fails there."""
+    def _graph_key(self, dense: np.ndarray, ids: np.ndarray, lengths):
+        """The key of the graph a request replays, or None for the eager
+        way. A graph takes a card, the dynamic table and inputs of one batch
+        at the tower's widths, with one-hot ids (key (bucket, S, ND)) or
+        pooled bags whose `lengths` hold one length a feature for every
+        candidate (key (bucket, ND, the bag lengths)). A malformed request
+        goes the eager way, and fails there."""
         mc = self.model_cfg
-        return (self.device.type == "cuda" and isinstance(self.table, DynamicEmbeddingTable)
-                and ids.ndim == 2 and dense.ndim == 2 and 0 < len(ids) == len(dense)
+        if not (self.device.type == "cuda" and isinstance(self.table, DynamicEmbeddingTable)
+                and ids.ndim in (2, 3) and dense.ndim == 2 and 0 < len(ids) == len(dense)
                 and ids.shape[1] == mc.num_sparse_features
-                and dense.shape[1] == mc.num_dense_features)
+                and dense.shape[1] == mc.num_dense_features):
+            return None
+        bucket = request_bucket(len(ids))
+        if ids.ndim == 2:
+            return bucket, ids.shape[1], dense.shape[1]
+        if lengths is None or not pooling.takes_ragged(self.model, ids):
+            return None
+        if isinstance(lengths, torch.Tensor):
+            lengths = lengths.cpu()
+        lengths = np.asarray(lengths)
+        if lengths.shape != ids.shape[:2] or not (lengths == lengths[0]).all():
+            return None
+        widths = tuple(int(w) for w in lengths[0])
+        if min(widths) < 0 or max(widths) > ids.shape[2] or sum(widths) == 0:
+            return None
+        return bucket, dense.shape[1], widths
 
-    def _graph_score(self, dense: np.ndarray, ids: np.ndarray):
-        """A one-hot request's scores from a replay of its bucket's graph,
-        captured on the bucket's first request; None where the bucket cannot
-        be captured, for the caller to answer eagerly."""
-        key = (request_bucket(len(ids)), ids.shape[1], dense.shape[1])
+    def _graph_score(self, key: tuple, dense: np.ndarray, ids: np.ndarray):
+        """A request's scores from a replay of its bucket's graph, captured
+        on the bucket's first request; None where the bucket cannot be
+        captured, for the caller to answer eagerly."""
         graphs = self._current_graphs()
         fresh = key not in graphs
         if fresh:
-            graphs[key] = _RequestGraph(*key, self.device)
+            if ids.ndim == 2:
+                graphs[key] = _RequestGraph(*key, self.device)
+            else:
+                cp, nd, widths = key
+                graphs[key] = _RequestGraph(cp, len(widths), nd, self.device, widths,
+                                            self.model_cfg.combiner)
         g = graphs[key]
         if g is None:
             return None
@@ -247,11 +303,13 @@ class ScoringService:
         return self._graphs
 
     def _capture(self, g: _RequestGraph) -> bool:
-        """Capture the one-hot request's device chain on the loaded inputs of
-        `g`, after one eager run on the capture stream, as capture requires.
+        """Capture the request's device chain on the loaded inputs of `g`,
+        after one eager run on the capture stream, as capture requires.
         False, with the error logged, where the chain cannot be captured."""
         def chain():
-            return tower_scores(self, g.dense, self.table.lookup(g.ids, train=False), g.shape)
+            rows = (self.table.lookup(g.ids, train=False) if g.bags is None
+                    else self._pool(g.ids, g.bags))
+            return tower_scores(self, g.dense, rows, g.shape)
 
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -279,9 +337,14 @@ class ScoringService:
         with span("meepo.serve.ragged"):
             flat, bags = pooling.ragged_batch(ids, lengths, self.device,
                                               self.model_cfg.combiner)
+        return self._pool(flat, bags), tuple(bags.lengths.shape)
+
+    def _pool(self, flat: torch.Tensor, bags: pooling.Bags) -> torch.Tensor:
+        """The pooled rows [B * S, dim] of the bags' ids `flat`, bag by bag
+        (the invalid id may follow them), each distinct id probed once."""
         rows, inverse = self.table.lookup_unique(flat)
-        pooled = dedup.GatherRows.apply(rows.float(), inverse, None, None, bags)
-        return pooled, tuple(bags.lengths.shape)
+        return dedup.GatherRows.apply(rows.float(), inverse[:bags.of.shape[0]], None, None,
+                                      bags)
 
     def reload(self, ckpt_path: str | None = None) -> dict:
         """Hot-swap to a (usually newer) checkpoint: the replacement table and

@@ -131,10 +131,10 @@ def test_only_a_request_at_the_towers_widths_takes_the_graph_path(ckpt, monkeypa
     svc = ScoringService(path, TableConfig(**TABLE), ModelConfig(**MODEL), device="cpu")
     monkeypatch.setattr(svc, "device", torch.device("cuda"))
     dense, onehot, bags = _requests(ids, np.random.default_rng(6), 5)
-    assert svc._takes_graph(dense, onehot)
+    assert svc._graph_key(dense, onehot, None) is not None
     for d, i in ((dense, bags), (dense, onehot[:, :2]), (dense[:, :3], onehot),
                  (dense, np.concatenate([onehot, onehot], 1)), (dense[:4], onehot)):
-        assert not svc._takes_graph(d, i), (d.shape, i.shape)
+        assert svc._graph_key(d, i, None) is None, (d.shape, i.shape)
 
 
 def test_from_jax_params_nested_and_flat():
