@@ -34,7 +34,17 @@ Phases (any failure exits non-zero and prints no result line):
            shapes, forward and backward: two calls equal, runs of <= 2
            segments bit-exact against the plain version, the rest within
            the order bound, 4 launches a GatherRows forward and backward,
-           and its times against the bytes bound. Then 3
+           and its times against the bytes bound. The positional path of
+           a model that pools inside (`check_positional`) at
+           bst-taobao.serve's largest request (2048 candidates of bags
+           [1, 20, 1, 1], dim 64): `positional_batch` equal to the CPU's,
+           `dedup.place_rows` bit for bit the plain version (padding
+           zero), its backward as the bag pool's is held, 4 launches
+           forward and backward, both timed; then a BST ScoringService at
+           the configuration's widths scores such a request with
+           `lengths` with the counters set to 0 just before: 1
+           bucket_probe, 1 row_gather and 2 row_merge_add, eager, the
+           scores equal to the padded path's. Then 3
            training steps on a 2^16-slot table on the card and on the CPU
            from one state: key, freq, last, cnt, ovf and counters equal;
            values, accumulators and loss within rtol 1e-5 / atol 1e-6;
@@ -975,6 +985,66 @@ def check_segment_sum(seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+def touches_two(starts, counts):
+    """Runs from `starts` of `counts` positions: which touch <= 2 segments of
+    the segment sum (an empty run, a row left at the memset's zero, touches
+    none)."""
+    S = segment_size()
+    return (counts == 0) | ((starts + counts - 1) // S - starts // S <= 1)
+
+
+def hold_segment_sum_gather(what: str, about: str, cases) -> list:
+    """Hold segment_sum_gather on each case (label, order, sorted rows,
+    output rows, the output rows that must be bit-exact, a maker of source
+    rows, the distinct source rows a call reads): the same bits on two
+    calls, the `exact` rows bit for bit the plain version on the CPU, the
+    rest within the summation-order bound; then time it against an
+    `index_add_` and K2 + K1 (`entry`) and on the host. `what` names the
+    path in the logs and the records, `about` its ids. Returns the timing
+    records."""
+    from meepoembedding_tpu_torch.kernels import segment_sum_gather
+
+    dev = torch.device("cuda")
+    out = []
+    for label, order, srows, rows, exact, make, distinct in cases:
+        srcs = [make() for _ in range(2)]
+        n, D = order.shape[0], srcs[0].shape[1]
+        got = segment_sum_gather(srcs[0], order, srows, rows)
+        again = segment_sum_gather(srcs[0], order, srows, rows)
+        want = segment_sum_gather(srcs[0].cpu(), order.cpu(), srows.cpu(), rows).to(dev)
+        torch.cuda.synchronize()
+        if not torch.equal(_bits(got), _bits(again)):
+            raise AssertionError(f"segment_sum_gather {what} {label}: two calls gave different "
+                                 f"bits")
+        if not torch.equal(_bits(got[exact]), _bits(want[exact])):
+            raise AssertionError(f"segment_sum_gather {what} {label}: runs touching <= 2 "
+                                 f"segments differ from the plain version")
+        err = within_order_bound(got, want, order_bound(
+            torch.zeros_like(got), srows, srcs[0].index_select(0, order)))
+        log(f"check segment_sum_gather, {what} {label}: n={n}, {about}, S={segment_size()}; "
+            f"{int(exact.sum())} of {rows} rows bit-exact, the rest within the order bound "
+            f"(max |kernel - plain| {err})")
+        o32 = order.to(torch.int32)
+        out.append(("row_merge_add", entry(
+            f"{what} {label} (segment_sum_gather)",
+            f"[{srcs[0].shape[0]}, {D}] f32 through n={n} positions -> [{rows}, {D}] f32 "
+            f"({about})",
+            12 * n + 4 * D * (distinct + rows),
+            [lambda x=x: segment_sum_gather(x, order, srows, rows) for x in srcs],
+            [lambda x=x: torch.zeros((rows, D), device=dev).index_add_(
+                0, srows.long(), x.index_select(0, order)) for x in srcs],
+            [lambda x=x: segment_sum(row_gather(x, o32), srows, rows,
+                                     torch.arange(n, device=dev), srows) for x in srcs],
+            lambda: err,
+            "segment_",
+        )))
+        host_time(f"segment_sum_gather {what} {label}",
+                  lambda: segment_sum_gather(srcs[0], order, srows, rows))
+        del srcs, got, again, want
+        torch.cuda.empty_cache()
+    return out
+
+
 # MLPerf DLRM-DCNv2's training step: 8192 examples of 26 bags of these sizes
 DCNV2_SIZES = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100, 27, 10, 3, 1, 1)
 DCNV2_BATCH, DCNV2_DIM = 8192, 128
@@ -995,13 +1065,12 @@ def check_segment_sum_gather(seed: int) -> list:
     records; the bounds read each id's 12 bytes of index, each distinct
     source row once and write every output row (the backward's [n, 128]
     output whole: the rows past the unique count are the memset's)."""
-    from meepoembedding_tpu_torch.kernels import segment_sum_gather
     from meepoembedding_tpu_torch.ops import pooling
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 29)
     g = torch.Generator(device=dev).manual_seed(seed + 29)
-    B, D, S = DCNV2_BATCH, DCNV2_DIM, segment_size()
+    B, D = DCNV2_BATCH, DCNV2_DIM
     cards = json.loads((ROOT / "benchmark" / "configs" / "dlrm-dcnv2.json").read_text())[
         "cardinalities"]
     cols = []
@@ -1018,11 +1087,6 @@ def check_segment_sum_gather(seed: int) -> list:
     inv64 = u.inverse.long()
     bag_sorted = bags.of.long().index_select(0, u.order)
 
-    def touches_two(starts, counts):
-        """Runs from `starts` of `counts` positions: which touch <= 2 segments
-        (an empty run, a row left at the memset's zero, touches none)."""
-        return (counts == 0) | ((starts + counts - 1) // S - starts // S <= 1)
-
     starts = torch.cumsum(lengths.reshape(-1).long(), 0) - lengths.reshape(-1).long()
     bag_exact = touches_two(starts, lengths.reshape(-1).long()).to(dev)
     runs = torch.bincount(inv64, minlength=cap)
@@ -1033,41 +1097,7 @@ def check_segment_sum_gather(seed: int) -> list:
         ("backward: the bags' gradient into the unique rows", bag_sorted, u.sorted_ids, cap,
          row_exact, lambda: torch.randn((nb, D), device=dev, generator=g) * 1e-3, nb),
     )
-    out = []
-    for label, order, srows, rows, exact, make, distinct in cases:
-        srcs = [make() for _ in range(2)]
-        got = segment_sum_gather(srcs[0], order, srows, rows)
-        again = segment_sum_gather(srcs[0], order, srows, rows)
-        want = segment_sum_gather(srcs[0].cpu(), order.cpu(), srows.cpu(), rows).to(dev)
-        torch.cuda.synchronize()
-        if not torch.equal(_bits(got), _bits(again)):
-            raise AssertionError(f"segment_sum_gather {label}: two calls gave different bits")
-        if not torch.equal(_bits(got[exact]), _bits(want[exact])):
-            raise AssertionError(f"segment_sum_gather {label}: runs touching <= 2 segments "
-                                 f"differ from the plain version")
-        err = within_order_bound(got, want, order_bound(
-            torch.zeros_like(got), srows, srcs[0].index_select(0, order)))
-        log(f"check segment_sum_gather {label}: n={n}, {nb} bags, {U} unique ids, S={S}; "
-            f"{int(exact.sum())} of {rows} rows bit-exact, the rest within the order bound "
-            f"(max |kernel - plain| {err})")
-        o32 = order.to(torch.int32)
-        out.append(("row_merge_add", entry(
-            f"DLRM-DCNv2 bag pool {label} (segment_sum_gather)",
-            f"[{srcs[0].shape[0]}, {D}] f32 through n={n} positions -> [{rows}, {D}] f32 "
-            f"({nb} bags, {U} unique ids)",
-            12 * n + 4 * D * (distinct + rows),
-            [lambda x=x: segment_sum_gather(x, order, srows, rows) for x in srcs],
-            [lambda x=x: torch.zeros((rows, D), device=dev).index_add_(
-                0, srows.long(), x.index_select(0, order)) for x in srcs],
-            [lambda x=x: segment_sum(row_gather(x, o32), srows, rows,
-                                     torch.arange(n, device=dev), srows) for x in srcs],
-            lambda: err,
-            "segment_",
-        )))
-        host_time(f"segment_sum_gather {label}",
-                  lambda: segment_sum_gather(srcs[0], order, srows, rows))
-        del srcs, got, again, want
-        torch.cuda.empty_cache()
+    out = hold_segment_sum_gather("DLRM-DCNv2 bag pool", f"{nb} bags, {U} unique ids", cases)
 
     rows_u = (torch.randn((cap, D), device=dev, generator=g) * 0.05).requires_grad_(True)
     grad = torch.randn((nb, D), device=dev, generator=g)
@@ -1080,6 +1110,150 @@ def check_segment_sum_gather(seed: int) -> list:
         raise AssertionError(f"a bag pool's forward and backward launched {counts}, not 4 "
                              f"row_merge_add (two kernels each) and nothing else")
     log(f"check GatherRows bag pool forward + backward: launches {counts}")
+    log_timings(out)
+    return out
+
+
+# bst-taobao.serve's largest request: 2048 candidates of bags of these sizes
+BST_SIZES, BST_CANDIDATES = (1, 20, 1, 1), 2048
+
+
+def bst_bags(seed: int, C: int):
+    """C candidates of bst-taobao's bags: ids [C, 4, 20] int64 padded with
+    the invalid id and lengths [C, 4] int32 (BST_SIZES), each bag a
+    Zipf(1.05) head and fixed ids of it, as the benchmark's traffic makes
+    them, in the configuration's feature namespaces; and the
+    configuration."""
+    cfg = json.loads((ROOT / "benchmark" / "configs" / "bst-taobao.json").read_text())
+    rng = np.random.default_rng(seed)
+    ids = np.full((C, len(BST_SIZES), max(BST_SIZES)), hashing.EMPTY_ID, np.int64)
+    for f, (size, card) in enumerate(zip(BST_SIZES, cfg["cardinalities"])):
+        head = (rng.zipf(1.05, C) - 1) % card
+        rest = (head[:, None] * 0x9E3779B1 + np.arange(1, size) * 0x85EBCA6B + f) % card
+        ids[:, f, :size] = (np.int64(f) << 44) | np.concatenate([head[:, None], rest], axis=1)
+    return ids, np.repeat(np.asarray([BST_SIZES], np.int32), C, axis=0), cfg
+
+
+def check_positional(seed: int) -> list:
+    """The positional path of a model that pools inside, at bst-taobao.serve's
+    largest request: 2048 candidates of bags [1, 20, 1, 1] (`bst_bags`: 23
+    ids of 80 slots each), dim 64. `pooling.positional_batch`: the valid ids
+    and places equal to the CPU's. Deduplicated, the positional gather
+    (`dedup.place_rows`, K1's segment_sum_gather with one run a place) bit
+    for bit the plain version on the CPU, zero at the padding's places; its
+    backward through `GatherRows` (each sorted id's place read) bit for bit
+    on every unique row whose run touches at most two segments, the rest
+    within the summation-order bound, and forward and backward launching 4
+    row_merge_add and nothing else; then both held and timed as
+    `check_segment_sum_gather` holds the bag pool. Last, a BST
+    ScoringService at the configuration's widths (a 2^18-slot table that one
+    Trainer step of those bags filled) scores another draw of them with
+    `lengths`, the counters set to 0 just before: 1 bucket_probe, 1
+    row_gather (the unique rows) and 2 row_merge_add (the positional
+    gather), eager, and the scores equal to the padded path's (no
+    `lengths`). Returns the two timing records."""
+    from meepoembedding_tpu_torch.ops import pooling
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    C = BST_CANDIDATES
+    ids, lengths, cfg = bst_bags(seed + 31, C)
+    D = cfg["model"]["embedding_dim"]
+    flat, pos = pooling.positional_batch(ids, lengths, dev)
+    flat_c, pos_c = pooling.positional_batch(ids, lengths, cpu)
+    n, places = flat.shape[0], pos.valid.numel()
+    if not (n == int(lengths.sum()) and torch.equal(flat.cpu(), flat_c)
+            and torch.equal(pos.at.cpu(), pos_c.at) and torch.equal(pos.valid.cpu(), pos_c.valid)):
+        raise AssertionError("positional_batch on the card differs from the CPU's")
+    u = dedup.unique_pairs(*hashing.split_ids_t(flat), n)
+    cap, U = u.hi.shape[0], int(u.valid.sum())
+    runs = torch.bincount(u.inverse.long(), minlength=cap)
+    row_exact = touches_two(torch.cumsum(runs, 0) - runs, runs)
+    about = f"{C} candidates of bags {list(BST_SIZES)}, {U} unique ids"
+
+    rows_u = torch.randn((cap, D), device=dev, generator=g) * 0.05
+    got = dedup.place_rows(rows_u, u.inverse, pos)
+    want = dedup.place_rows(rows_u.cpu(), u.inverse.cpu(), pos_c)
+    if not torch.equal(_bits(got.cpu()), _bits(want)):
+        raise AssertionError("place_rows: the card's layout differs from the plain version's")
+    if got[~pos.valid.reshape(-1)].any():
+        raise AssertionError("place_rows: a padding place holds a nonzero row")
+    grad = torch.randn((places, D), device=dev, generator=g) * 1e-3
+    r = rows_u.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    reset_launches()
+    dedup.GatherRows.apply(r, u.inverse, u.order, u.sorted_ids, pos).backward(grad)
+    torch.cuda.synchronize()
+    counts = launches()
+    if counts != {**{k: 0 for k in counts}, "row_merge_add": 4}:
+        raise AssertionError(f"a positional gather's forward and backward launched {counts}, "
+                             f"not 4 row_merge_add (two kernels each) and nothing else")
+    rc = rows_u.cpu().requires_grad_(True)
+    dedup.GatherRows.apply(rc, u.inverse.cpu(), u.order.cpu(), u.sorted_ids.cpu(),
+                           pos_c).backward(grad.cpu())
+    at_sorted = pos.at.long().index_select(0, u.order)
+    if not torch.equal(_bits(r.grad[row_exact]), _bits(rc.grad.to(dev)[row_exact])):
+        raise AssertionError("the positional backward: runs touching <= 2 segments differ "
+                             "from the plain version")
+    err = within_order_bound(r.grad, rc.grad.to(dev), order_bound(
+        torch.zeros_like(r.grad), u.sorted_ids, grad.index_select(0, at_sorted)))
+    log(f"check positional gather ({about}): place_rows bit-equal to the plain version, "
+        f"padding zero; backward {int(row_exact.sum())} of {cap} rows bit-exact, the rest "
+        f"within the order bound (max |card - CPU| {err}); forward + backward launches {counts}")
+    del r, rc, got, want, grad
+    ones = pos.valid.reshape(-1).long()
+    out = hold_segment_sum_gather("BST positional gather", about, (
+        ("forward: the unique rows at their places", u.inverse.long(), pos.at, places,
+         touches_two(torch.cumsum(ones, 0) - ones, ones),
+         lambda: torch.randn((cap, D), device=dev, generator=g) * 0.05, U),
+        ("backward: the places' gradient into the unique rows", at_sorted, u.sorted_ids, cap,
+         row_exact, lambda: torch.randn((places, D), device=dev, generator=g) * 1e-3, n),
+    ))
+    del flat, pos, u, rows_u
+    torch.cuda.empty_cache()
+
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    mc = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                        for k, v in cfg["model"].items() if k in fields})
+    tc = TableConfig(dim=D, capacity=1 << 18)
+    path = ROOT / "build" / "chip_smoke_bst"
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        tr = Trainer(RunConfig(batch_size=C), tc, mc, device=dev,
+                     generator=torch.Generator().manual_seed(seed))
+        dense = np.zeros((C, mc.num_dense_features), np.float32)
+        loss = tr.train_step({"ids": ids, "lengths": lengths, "dense": dense,
+                              "label": (np.arange(C) % 4 == 0).astype(np.float32)})["loss"]
+        tr.save_checkpoint(str(path))
+        svc = ScoringService(str(path), tc, mc, device=dev)
+        req, req_len, _ = bst_bags(seed + 37, C)
+        svc.score(dense, req, lengths=req_len)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        paths = score_paths(svc)
+        got = svc.score(dense, req, lengths=req_len)
+        counts = launches()
+        want = {**{k: 0 for k in counts}, "bucket_probe": 1, "row_gather": 1,
+                "row_merge_add": 2}
+        now = score_paths(svc)
+        if counts != want or now != (paths[0], paths[1], paths[2] + 1):
+            raise AssertionError(f"a BST request with lengths launched {counts} on paths "
+                                 f"{paths} -> {now}, not {want}, eager")
+        padded = svc.score(dense, req)
+        if not np.array_equal(got, padded):
+            raise AssertionError(f"BST scores with lengths differ from the padded path's by "
+                                 f"up to {float(np.abs(got - padded).max())}")
+        n_req = int(req_len.sum())
+        if (svc.positional_ids, svc.positional_padding) != (2 * n_req, 2 * (req.size - n_req)):
+            raise AssertionError(f"the service counted {svc.positional_ids} positional ids and "
+                                 f"{svc.positional_padding} padding slots")
+        log(f"check BST ScoringService.score(lengths=) of {C} x {list(BST_SIZES)} bags at "
+            f"d {D}, {mc.attention_heads} heads, top {list(mc.top_mlp)} (one Trainer step, "
+            f"loss {loss:.6f}): launches {counts}, eager; scores equal to the padded path's; "
+            f"{n_req} ids taken, {req.size - n_req} padding slots kept out")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.empty_cache()
     log_timings(out)
     return out
 
@@ -5531,7 +5705,7 @@ def run_phases(args) -> int:
     check_kernels(CHECK_ROWS_LOG2, args.seed)
     check_add_kernels(CHECK_ROWS_LOG2, args.seed)
     check_segment_sum(args.seed)
-    pool_timings = check_segment_sum_gather(args.seed)
+    pool_timings = check_segment_sum_gather(args.seed) + check_positional(args.seed)
     check_train_parity(args.seed)
     probe_timings = pool_timings + time_bucket_probe(args.seed)
     log(f"kernels: checks passed in {time.perf_counter() - t0:.1f} s")

@@ -13,7 +13,10 @@ unique rows and the dense params, each member's sparse update
 Adam.
 
 Batches: batch["ids"] is [B, S] or [B, S, L] int64, where sparse column s
-reads from table `feature_map[s]`. Several columns may name one table (the
+reads from table `feature_map[s]`. Bags stay padded here (both trainers
+pool them with `pooling.pool_or_reshape`): the single-device
+`train.Trainer`'s ragged paths (`ops/pooling.py`) are not taken (ROADMAP
+queue 5, item 4(a)). Several columns may name one table (the
 shared-embedding pattern: a candidate item and the history items share the
 item table); their ids dedup together, so an id is gathered and updated
 once a step.

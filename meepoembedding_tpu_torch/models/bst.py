@@ -14,7 +14,13 @@ The attention is written out as the reference writes it: projections
 `nn.MultiheadAttention` packs and biases its projections, so the
 reference's wq/wk/wv/wo cannot map onto it; `scaled_dot_product_attention`
 treats fully masked rows otherwise. LayerNorm uses the reference's eps
-(1e-6; `nn.LayerNorm` defaults to 1e-5).
+(1e-6; `nn.LayerNorm` defaults to 1e-5). The encoder blocks run inside the
+span `meepo.tower.attention`.
+
+Given `lengths`, the trainer and the scoring service hand the model its
+bags by position without padding ever reaching the table
+(`pooling.takes_positional`): the rows at their places of a zero
+[B, S, L, D] input, and the validity from the lengths.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from torch import nn
 from meepoembedding_tpu_torch.config import ModelConfig
 from meepoembedding_tpu_torch.models.common import DTYPES, MLP, normal_
 from meepoembedding_tpu_torch.models.din import bags, masked_mean
+from meepoembedding_tpu_torch.tracing import span
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -113,8 +120,9 @@ class BST(nn.Module):
         tokens = (tokens + self.pos[:L + 1].float()).to(DTYPES[cfg.dtype])
         neg = torch.where(tok_valid, 0.0, -1e9).to(torch.float32)  # padded keys
         x = tokens
-        for blk in self.blocks:
-            x = blk(x, neg, cfg.attention_heads)
+        with span("meepo.tower.attention"):
+            for blk in self.blocks:
+                x = blk(x, neg, cfg.attention_heads)
         seq = masked_mean(x.to(torch.float32), tok_valid, 1)  # [B, D]
         parts = [dense.to(torch.float32), target, seq]
         if self.num_context:

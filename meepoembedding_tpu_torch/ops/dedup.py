@@ -29,6 +29,14 @@ order), then the combiner (`pooling.pool_bags`): [B * S, dim], an empty bag
 zeros. Backward, the pooled gradient scaled as the combiner scales goes
 to the unique rows by the same segment sum over the dedup's sorted ids,
 each reading its bag's row. No [n, dim] rows are made either way.
+
+With positional ragged bags (`pooling.Positions`, the bags of a model that
+pools inside) the gather lays the rows out by place. Forward, each valid
+id's unique row goes to its (b, s, slot) place of a zero [B * S * L, dim]
+output: the same segment sum, whose runs are the places (increasing, one id
+each) and whose rows are read through `inverse`. Backward, the segment sum
+over the dedup's sorted ids, each reading the gradient at its id's place:
+the padding's places are never read.
 """
 
 from __future__ import annotations
@@ -120,26 +128,49 @@ def segment_sum_grads(grads: torch.Tensor, inverse: torch.Tensor, num_unique: in
                        order=order, sorted_rows=sorted_ids)
 
 
+def place_rows(rows_u: torch.Tensor, inverse: torch.Tensor,
+               positions: pooling.Positions) -> torch.Tensor:
+    """The forward of `GatherRows` with `pooling.Positions`: each valid id's
+    unique row rows_u[inverse[k]] at its place positions.at[k] of a zero
+    [B * S * L, dim] f32 output (K1's segment sum, one run a place). A
+    scoring request, which needs no gradient, calls it directly."""
+    with span("meepo.table.positions"):
+        return segment_sum_gather(rows_u.float().contiguous(), inverse.long(), positions.at,
+                                  positions.valid.numel())
+
+
+def _sort(inverse: torch.Tensor):
+    """(order, sorted ids) of the stable sort of `inverse`, as `Unique`
+    holds them."""
+    sorted_ids, order = torch.sort(inverse, stable=True)
+    return order, sorted_ids
+
+
 class GatherRows(torch.autograd.Function):
     """rows_u[inverse]: the unique rows expanded to batch order (K2), whose
     gradient is the segment sum of the batch-order gradients (K1). This is
     how the model's gradient reaches the unique rows of a training step.
     `order` and `sorted_ids` (the `Unique`'s) let the backward skip its
     sort. With `bags` (`pooling.Bags` of ragged ids) the rows come out
-    pooled, [B * S, dim], and the gradient goes back through the pooling."""
+    pooled, [B * S, dim], and the gradient goes back through the pooling;
+    with `pooling.Positions` they come out at their places, [B * S * L,
+    dim], zero under padding."""
 
     @staticmethod
     def forward(ctx, rows_u: torch.Tensor, inverse: torch.Tensor,
                 order: Optional[torch.Tensor] = None,
                 sorted_ids: Optional[torch.Tensor] = None,
-                bags: Optional[pooling.Bags] = None) -> torch.Tensor:
+                bags=None) -> torch.Tensor:
         sort = () if order is None else (order, sorted_ids)
         ctx.num_unique = rows_u.shape[0]
-        ctx.bags = bags is not None
+        ctx.kind = None if bags is None else type(bags)
         if bags is None:
             ctx.save_for_backward(inverse, *sort)
             with span("meepo.table.gather"):
                 return row_gather(rows_u.contiguous(), inverse)
+        if isinstance(bags, pooling.Positions):
+            ctx.save_for_backward(inverse, bags.at, *sort)
+            return place_rows(rows_u, inverse, bags)
         ctx.save_for_backward(inverse, bags.of, bags.lengths, *sort)
         ctx.combiner = bags.combiner
         with span("meepo.table.pool"):
@@ -151,17 +182,22 @@ class GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out: torch.Tensor):
-        if not ctx.bags:
+        if ctx.kind is None:
             inverse, *sort = ctx.saved_tensors
             with span("meepo.table.segment_sum"):
                 g = segment_sum_grads(grad_out, inverse, ctx.num_unique, *sort)
             return g, None, None, None, None
+        if ctx.kind is pooling.Positions:
+            inverse, at, *sort = ctx.saved_tensors
+            with span("meepo.table.positions_backward"):
+                order, sorted_ids = sort if sort else _sort(inverse)
+                g = segment_sum_gather(grad_out.float().contiguous(),
+                                       at.long().index_select(0, order), sorted_ids,
+                                       ctx.num_unique)
+            return g, None, None, None, None
         inverse, of, lengths, *sort = ctx.saved_tensors
         with span("meepo.table.pool_backward"):
-            if sort:
-                order, sorted_ids = sort
-            else:
-                sorted_ids, order = torch.sort(inverse, stable=True)
+            order, sorted_ids = sort if sort else _sort(inverse)
             g = pooling.combine(grad_out.reshape(-1, grad_out.shape[-1]).float(),
                                 pooling.bag_counts(lengths).reshape(-1),
                                 ctx.combiner).contiguous()

@@ -4,16 +4,33 @@ A bag is a fixed `[B, S, L]` id tensor padded with the invalid id. Padding
 ids resolve to zero rows in the lookup, so pooling is a plain sum over the
 bag, divided by the combiner's count of real ids.
 
-Not in the reference: ragged bags, the one bag path of a model that takes
-pooled bags (`takes_ragged`). The table gets only a batch's n valid ids
-(`ragged_batch`), bag by bag in the row-major order of [B, S]: with the
-bags' lengths [B, S] beside the padded ids, each bag's first lengths[b, s]
-slots (`ragged_ids`); without them, its valid ids wherever the padding
-lies. `dedup.GatherRows` sums each bag's rows straight from the unique
-rows (`Bags` says which bag each id is in) and `pool_bags` applies the
-combiner to those sums, as bags of one row counted by their lengths. Padding never reaches the dedup, the probe or the
-update. Models that pool inside or key items by their bags (din, bst,
-two_tower) keep the padded bags and `pool_bags`.
+Not in the reference: three bag paths, chosen by the model and by whether
+the batch carries the bags' `lengths` [B, S] (a bag's ids are then its
+first lengths[b, s] slots).
+
+- Pooled ragged bags (`takes_ragged`: a model that takes pooled bags, such
+  as dlrm, dcn, deepfm, ctr_mlp). The table gets only a batch's n valid
+  ids (`ragged_batch`), bag by bag in the row-major order of [B, S]: with
+  `lengths`, each bag's first lengths[b, s] slots (`ragged_ids`); without
+  them, its valid ids wherever the padding lies. `dedup.GatherRows` sums
+  each bag's rows straight from the unique rows (`Bags` says which bag each
+  id is in) and `pool_bags` applies the combiner to those sums, as bags of
+  one row counted by their lengths.
+- Positional ragged bags (`takes_positional`: a model that pools inside,
+  din and bst, given `lengths`). The table gets the same n valid ids
+  (`positional_batch`), and `dedup.GatherRows` lays each id's unique row
+  at its (b, s, slot) place of a zero [B, S, L, dim] output (`Positions`
+  says where), which the model reads position by position beside the
+  bags' validity. The trainer and the scoring service that take such bags
+  count the ids taken and the padding slots kept from the table
+  (`positional_ids`, `positional_padding`).
+- Padded bags: two_tower, which keys items by its padded bags, a model
+  that pools inside given no `lengths`, and the sharded and group trainers
+  and services. The padded [B, S, L] ids go to the table, padding
+  included; `pool_bags` pools them, or the model reads them raw.
+
+On both ragged paths padding never reaches the dedup, the probe or the
+update.
 """
 
 from __future__ import annotations
@@ -79,12 +96,31 @@ class Bags(NamedTuple):
     combiner: str
 
 
-def takes_ragged(model, ids) -> bool:
-    """Whether a batch's ids go the ragged way: multi-hot [B, S, L] bags for
-    a model that takes them pooled. Models that pool inside (din, bst) or
-    key items by their padded bags (two_tower) keep the padded bags."""
+class Positions(NamedTuple):
+    """Positional ragged bags on the device, for `dedup.GatherRows`."""
+
+    at: torch.Tensor  # i32 [n] each id's flat place in [B, S, L], increasing
+    valid: torch.Tensor  # bool [B, S, L] the places that hold an id
+
+
+def _bags_of(ids) -> bool:
     ndim = ids.dim() if isinstance(ids, torch.Tensor) else np.ndim(ids)
-    return (ndim == 3 and not getattr(model, "pools_inside", False)
+    return ndim == 3
+
+
+def takes_ragged(model, ids) -> bool:
+    """Whether a batch's ids go the pooled ragged way: multi-hot [B, S, L]
+    bags for a model that takes them pooled. Models that pool inside (din,
+    bst) or key items by their padded bags (two_tower) do not."""
+    return (_bags_of(ids) and not getattr(model, "pools_inside", False)
+            and not hasattr(model, "item_key"))
+
+
+def takes_positional(model, ids, lengths) -> bool:
+    """Whether a batch's ids go the positional ragged way: multi-hot
+    [B, S, L] bags with their `lengths` for a model that pools inside (din,
+    bst). Without `lengths` such a model keeps the padded bags."""
+    return (_bags_of(ids) and lengths is not None and getattr(model, "pools_inside", False)
             and not hasattr(model, "item_key"))
 
 
@@ -168,3 +204,25 @@ def bags_on(lengths, n: int, device, combiner: str) -> Bags:
     of = torch.repeat_interleave(bag, lens.reshape(-1), output_size=n)
     return Bags(of=of, lengths=lens, combiner=combiner)
 
+
+def positional_batch(ids, lengths, device):
+    """[B, S, L] padded bags and their lengths [B, S] -> (their n =
+    sum(lengths) valid ids on `device`, flat, bag by bag in the row-major
+    order of [B, S]; their `Positions`). The padded ids and the lengths are
+    copied as they are, without waiting on the device (a copy from pageable
+    memory is staged before it returns); on the device the validity is made
+    from the lengths and the valid places are taken from it at the size n,
+    which the host knows. Only the n valid ids go on to the split, the
+    dedup, the probe and the update."""
+    ids, lens = _host(ids, np.int64), _host(lengths, np.int64)
+    if ids.ndim != 3 or lens.shape != ids.shape[:2]:
+        raise ValueError(f"positional bags need ids [B, S, L] and lengths [B, S]; got ids "
+                         f"{ids.shape} and lengths {lens.shape}")
+    L = ids.shape[2]
+    if lens.size and (lens.min() < 0 or lens.max() > L):
+        raise ValueError(f"bag lengths must lie in [0, {L}]")
+    valid = (torch.arange(L, device=device)
+             < torch.from_numpy(lens).to(device, non_blocking=True).unsqueeze(-1))
+    at = torch.nonzero_static(valid.reshape(-1), size=int(lens.sum())).reshape(-1)
+    flat = torch.from_numpy(ids).to(device, non_blocking=True).reshape(-1).index_select(0, at)
+    return flat, Positions(at=at.to(torch.int32), valid=valid)

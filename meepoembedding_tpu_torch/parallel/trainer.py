@@ -27,6 +27,11 @@ were in flight when it fired do not double it again.
 Every rank must call the same methods in the same order, with batches of
 the same shape: each step, eval, growth, removal, maintenance, save and
 restore runs collectives.
+
+Multi-hot [B, S, L] bags go to the exchange padded, for every model: the
+single-device `train.Trainer`'s ragged paths (pooled, and positional for
+din and bst, `ops/pooling.py`) are not taken here, so padding slots are
+deduplicated and routed with the ids (ROADMAP queue 5, item 4(a)).
 """
 
 from __future__ import annotations

@@ -31,10 +31,15 @@ differing lengths or without `lengths`, models that pool inside or key items
 by their bags, the int8 table, the CPU) runs eagerly, through the same
 functions.
 
-Not in the reference: multi-hot bags go the ragged way, as the trainer's
-do (`train.py`, `pooling.takes_ragged`), from the dynamic table: only the
-valid ids are probed, and `dedup.GatherRows` pools the bags from the unique
-rows. The int8 table, which has no unique-id lookup, reads padded bags.
+Not in the reference: multi-hot bags take the trainer's three paths
+(`train.py`, `ops/pooling.py`) from the dynamic table. Pooled ragged bags
+(`pooling.takes_ragged`): only the valid ids are probed, and
+`dedup.GatherRows` pools the bags from the unique rows. Positional ragged
+bags (`pooling.takes_positional`: din or bst given `lengths`): only the
+valid ids are probed, and `GatherRows` lays their rows at their places of
+the model's zero [C, S, L, dim] input; such a request runs eagerly. Padded
+bags: the two-tower, a pooling-inside model given no `lengths`, and the
+int8 table, which has no unique-id lookup.
 """
 
 from __future__ import annotations
@@ -95,11 +100,13 @@ def fixed_bags(cp: int, widths: tuple, device, combiner: str) -> pooling.Bags:
     return pooling.bags_on(lengths, cp * sum(widths), device, combiner)
 
 
-def tower_scores(svc, dense_t, rows, shape, ids_t=None) -> torch.Tensor:
+def tower_scores(svc, dense_t, rows, shape, ids_t=None, bag_valid=None) -> torch.Tensor:
     """A scoring service's scores of the looked-up rows ([n, dim], the ids
     of `shape` in order): the tower's input, its forward and the sigmoid.
-    Padded bags ([B, S, L] `shape`) take their validity from `ids_t`."""
-    bag_valid = hashing.is_valid(*hashing.split_ids_t(ids_t)) if len(shape) == 3 else None
+    Bags ([B, S, L] `shape`) take their validity from `bag_valid`, or from
+    their padded ids `ids_t`."""
+    if bag_valid is None and len(shape) == 3:
+        bag_valid = hashing.is_valid(*hashing.split_ids_t(ids_t))
     with span("meepo.tower.forward"):
         emb = model_inputs(svc.model, rows, shape, bag_valid, svc.table_cfg.dim,
                            svc.model_cfg.combiner)
@@ -147,7 +154,9 @@ class ScoringService:
     answered requests by path: a replay of a bucket's graph, the request
     that captured it, or the eager one (bags of differing lengths or without
     `lengths`, models that pool inside or key items by bags, int8, the CPU,
-    a bucket whose capture failed)."""
+    a bucket whose capture failed). `positional_ids` and
+    `positional_padding` count the valid ids of its positional requests and
+    the padding slots it kept from the table."""
 
     def __init__(self, ckpt_path: str, table_cfg, model_cfg, quantize: str = "none",
                  device="cuda"):
@@ -163,6 +172,7 @@ class ScoringService:
         self._lat_ms: list = []  # ring of recent scoring latencies
         self._requests = 0
         self.graph_replays = self.graph_captures = self.eager_requests = 0
+        self.positional_ids = self.positional_padding = 0
         # (bucket, S, ND) of one-hot requests and (bucket, ND, bag lengths)
         # of fixed-size bags -> _RequestGraph, or None where its capture
         # failed; captured on the objects `_graph_of` refers to, in one pool
@@ -199,8 +209,9 @@ class ScoringService:
         with span("meepo.serve.request"):
             ids = np.asarray(ids, np.int64)
             dense = np.asarray(dense, np.float32)
-            ragged = (pooling.takes_ragged(self.model, ids)
-                      and hasattr(self.table, "lookup_unique"))
+            ragged = hasattr(self.table, "lookup_unique") and (
+                pooling.takes_ragged(self.model, ids)
+                or pooling.takes_positional(self.model, ids, lengths))
             t0 = time.perf_counter()
             with span("meepo.serve.queue"):
                 self._lock.acquire()
@@ -225,11 +236,15 @@ class ScoringService:
         with span("meepo.serve.inputs"):
             ids_t = None if ragged else torch.from_numpy(ids).to(self.device)
             dense_t = torch.from_numpy(dense).to(self.device)
-        if ragged:
-            rows, shape = self._pooled(ids, lengths)
-        else:
+        bag_valid = None
+        if not ragged:
             rows, shape = self.table.lookup(ids_t.reshape(-1), train=False), ids.shape
-        p = tower_scores(self, dense_t, rows, shape, ids_t)
+        elif pooling.takes_positional(self.model, ids, lengths):
+            rows, bag_valid = self._positions(ids, lengths)
+            shape = ids.shape
+        else:
+            rows, shape = self._pooled(ids, lengths)
+        p = tower_scores(self, dense_t, rows, shape, ids_t, bag_valid)
         with span("meepo.serve.readback_sync"):
             return p.cpu().numpy()
 
@@ -249,6 +264,8 @@ class ScoringService:
         bucket = request_bucket(len(ids))
         if ids.ndim == 2:
             return bucket, ids.shape[1], dense.shape[1]
+        # positional bags (a model that pools inside) stay eager: the
+        # captured chain pools its bags
         if lengths is None or not pooling.takes_ragged(self.model, ids):
             return None
         if isinstance(lengths, torch.Tensor):
@@ -339,6 +356,17 @@ class ScoringService:
                                               self.model_cfg.combiner)
         return self._pool(flat, bags), tuple(bags.lengths.shape)
 
+    def _positions(self, ids: np.ndarray, lengths):
+        """Positional ragged bags' rows [B * S * L, dim], zero under padding,
+        and their validity [B, S, L]: the valid ids probed once each, laid
+        out by `dedup.place_rows` (`GatherRows`' forward)."""
+        with span("meepo.serve.ragged"):
+            flat, pos = pooling.positional_batch(ids, lengths, self.device)
+        self.positional_ids += flat.shape[0]
+        self.positional_padding += pos.valid.numel() - flat.shape[0]
+        rows, inverse = self.table.lookup_unique(flat)
+        return dedup.place_rows(rows, inverse, pos), pos.valid
+
     def _pool(self, flat: torch.Tensor, bags: pooling.Bags) -> torch.Tensor:
         """The pooled rows [B * S, dim] of the bags' ids `flat`, bag by bag
         (the invalid id may follow them), each distinct id probed once."""
@@ -368,7 +396,8 @@ class ScoringService:
             "# TYPE meepo_requests_total counter",
             f"meepo_requests_total {self._requests}",
         ]
-        for name in ("graph_replays", "graph_captures", "eager_requests"):
+        for name in ("graph_replays", "graph_captures", "eager_requests", "positional_ids",
+                     "positional_padding"):
             lines.append(f"# TYPE meepo_{name}_total counter")
             lines.append(f"meepo_{name}_total {getattr(self, name)}")
         # a QuantizedTable keeps no counters

@@ -20,8 +20,9 @@ end in `_sync`.
   meepo.train.step          Trainer.train_step, whole
   meepo.train.inputs        the step's host-to-device copies of its batch
   meepo.train.ragged        ragged bags: the valid ids taken
-                            (`pooling.ragged_batch`), their copy, and each
-                            id's bag on the device
+                            (`pooling.ragged_batch`, or for a model that
+                            pools inside `pooling.positional_batch`), their
+                            copy, and each id's bag or place on the device
   meepo.train.metrics       last_logits and the streaming AUC's update
   meepo.train.loss_sync     the loss's read-back
   meepo.table.dedup         dedup.unique_pairs
@@ -43,9 +44,16 @@ end in `_sync`.
                             sum of its unique rows, then the combiner
   meepo.table.pool_backward its backward, the pooled gradient to the
                             unique rows
+  meepo.table.positions     dedup.place_rows, GatherRows.forward of
+                            positional bags (din, bst; a scoring request
+                            calls it directly): each valid id's unique row
+                            at its place of a zero [B, S, L, dim] input
+  meepo.table.positions_backward its backward, the gradient at the valid
+                            places to the unique rows
   meepo.table.update        optim.apply_sparse_grads_ctx
   meepo.tower.forward       the tower's forward (and loss, in a step)
   meepo.tower.cross         DLRM-DCNv2's cross net, in the forward
+  meepo.tower.attention     BST's encoder blocks, in the forward
   meepo.tower.backward      torch.autograd.grad in a step
   meepo.tower.update        clip, learning rate and the dense Adam
   meepo.serve.request       ScoringService.score, whole
@@ -56,6 +64,14 @@ end in `_sync`.
                             and the replay of its bucket's CUDA graph (on
                             the bucket's first request, the capture too)
   meepo.serve.readback_sync the scores' copy to the host
+
+Counters beside the spans, plain integers bumped on the host as the
+kernels' `<wrapper>.launches` are, each kept by the object that takes the
+path: a `Trainer`'s or a `ScoringService`'s `positional_ids`, the valid
+ids of positional bags it took (`pooling.positional_batch`), and
+`positional_padding`, the padding slots of those bags that it kept from
+the table (a scoring service's `/metrics` exports them as
+`meepo_positional_ids_total` and `meepo_positional_padding_total`).
 """
 
 from __future__ import annotations

@@ -21,14 +21,21 @@ One path serves every dim: the values plane is row-major, so the
 reference's 128-lane window rows (dim <= 128) and its `find_or_insert` path
 (dim > 128) are both this one.
 
-Not in the reference: multi-hot bags go the ragged way for a model that
-takes pooled bags (`pooling.takes_ragged`): only the batch's n valid ids
-are taken (`pooling.ragged_batch`, span `meepo.train.ragged`; on the host
-from `lengths` [B, S] where the batch carries them), deduplicated to
-capacity n, and `GatherRows` pools them by bag (`pooling.Bags`), so padding
-never reaches the dedup, the probe, the gather or the update. Models that
-pool inside or key items by their padded bags (din, bst, two_tower) keep
-the padded path.
+Not in the reference: multi-hot bags take one of three paths
+(`ops/pooling.py`). A model that takes pooled bags goes the pooled ragged
+way (`pooling.takes_ragged`): only the batch's n valid ids are taken
+(`pooling.ragged_batch`, span `meepo.train.ragged`; on the host from
+`lengths` [B, S] where the batch carries them), deduplicated to capacity
+n, and `GatherRows` pools them by bag (`pooling.Bags`). A model that pools
+inside (din, bst), given `lengths`, goes the positional ragged way
+(`pooling.takes_positional`): the same n valid ids (`pooling.
+positional_batch`, the same span), and `GatherRows` lays their rows at
+their places of a zero [B, S, L, dim] input (`pooling.Positions`), which
+the model reads beside the validity from `lengths`. On both, padding never
+reaches the dedup, the probe, the gather or the update. The two-tower
+(which keys items by its padded bags) and a pooling-inside model given no
+`lengths` keep the padded path, as do the sharded and group trainers
+(`parallel/trainer.py`, `group_train.py`).
 
   >>> tr = Trainer(RunConfig(batch_size=256), TableConfig(dim=16), ModelConfig(...),
   ...              device="cpu")
@@ -117,6 +124,9 @@ class Trainer:
         self._async_ckpt = None
         self.auc = StreamingAUC()
         self.last_logits: Optional[torch.Tensor] = None
+        # the valid ids of positional bags taken, and their padding slots
+        # kept from the table
+        self.positional_ids = self.positional_padding = 0
         self._freq_est = None
         if model_cfg.logq_correction:
             if not hasattr(self.model, "loss_and_logits"):
@@ -128,19 +138,29 @@ class Trainer:
         return self.run_cfg.unique_cap or int(np.prod(ids_shape))
 
     def _inputs(self, batch: dict):
-        """(ids shape or (B, S) of ragged bags, dense, label, the dedup, the
-        padded bags' validity, the item key, the ragged `pooling.Bags`)."""
-        ragged = pooling.takes_ragged(self.model, batch["ids"])
+        """(ids shape or (B, S) of pooled ragged bags, dense, label, the
+        dedup, the bags' validity, the item key, the ragged `pooling.Bags`
+        or `pooling.Positions`)."""
+        ids, lengths = batch["ids"], batch.get("lengths")
+        positional = pooling.takes_positional(self.model, ids, lengths)
+        ragged = positional or pooling.takes_ragged(self.model, ids)
         with span("meepo.train.inputs"):
-            ids = None if ragged else _tensor(batch["ids"], self.device, torch.int64)
+            ids = ids if ragged else _tensor(ids, self.device, torch.int64)
             dense = _tensor(batch["dense"], self.device, torch.float32)
             label = _tensor(batch["label"], self.device, torch.float32)
         if ragged:
             with span("meepo.train.ragged"):
-                flat, bags = pooling.ragged_batch(batch["ids"], batch.get("lengths"),
-                                                  self.device, self.model_cfg.combiner)
+                if positional:
+                    flat, bags = pooling.positional_batch(ids, lengths, self.device)
+                    self.positional_ids += flat.shape[0]
+                    self.positional_padding += bags.valid.numel() - flat.shape[0]
+                else:
+                    flat, bags = pooling.ragged_batch(ids, lengths, self.device,
+                                                      self.model_cfg.combiner)
             hi, lo = hashing.split_ids_t(flat)
             uniq = dedup.unique_pairs(hi, lo, self.run_cfg.unique_cap or flat.shape[0])
+            if positional:
+                return tuple(bags.valid.shape), dense, label, uniq, bags.valid, None, bags
             return tuple(bags.lengths.shape), dense, label, uniq, None, None, bags
         hi, lo = hashing.split_ids_t(ids)
         uniq = dedup.unique_pairs(hi.reshape(-1), lo.reshape(-1), self._unique_cap(ids.shape))

@@ -162,3 +162,42 @@ def test_every_benchmark_layer_hook_is_entered(monkeypatch):
         tr.train_step(_batch(1, 7))
     assert len(want) == len(targets) + 2
     assert set(entered) == want, sorted(want - set(entered))
+
+
+def test_a_bst_step_and_request_show_the_positional_spans(tmp_path):
+    """BST on bags with lengths: a step shows the encoder's
+    `meepo.tower.attention` inside the forward, and `meepo.table.positions`
+    and its backward; a request shows `meepo.table.positions` and the
+    encoder. The counters count the sum(lengths) valid ids and the padding
+    slots kept from the table, per step and per request."""
+    from meepoembedding_tpu_torch.table import hashing
+
+    bs, length = 8, 5
+    mc = ModelConfig(kind="bst", num_dense_features=ND, num_sparse_features=S,
+                     embedding_dim=DIM, attention_heads=2, max_seq_len=length + 1,
+                     top_mlp=(16, 1))
+    tc = TableConfig(dim=DIM, capacity=1 << 12)
+    tr = Trainer(RunConfig(batch_size=bs), tc, mc, device="cpu")
+    rng = np.random.default_rng(8)
+    lengths = rng.integers(1, length + 1, (bs, S)).astype(np.int32)
+    ids = (np.arange(S, dtype=np.int64)[None, :, None] << 44) | rng.integers(0, 50, (bs, S,
+                                                                                  length))
+    ids[np.arange(length)[None, None, :] >= lengths[..., None]] = hashing.EMPTY_ID
+    b = {"ids": ids, "lengths": lengths, "label": (rng.random(bs) < 0.5).astype(np.float32),
+         "dense": rng.standard_normal((bs, ND)).astype(np.float32)}
+    tr.train_step(b)
+    path = str(tmp_path / "ckpt")
+    tr.save_checkpoint(path)
+    svc = ScoringService(path, tc, mc, device="cpu")
+    n, pad = int(lengths.sum()), bs * S * length - int(lengths.sum())
+    before = (tr.positional_ids, tr.positional_padding)
+    step = _traced(lambda: tr.train_step(b), tmp_path)
+    assert (tr.positional_ids - before[0], tr.positional_padding - before[1]) == (n, pad)
+    assert _holds(step, "meepo.tower.forward", "meepo.tower.attention")
+    for inner in ("meepo.train.ragged", "meepo.table.positions",
+                  "meepo.table.positions_backward", "meepo.tower.attention"):
+        assert _holds(step, "meepo.train.step", inner), inner
+    request = _traced(lambda: svc.score(b["dense"], ids, lengths=lengths), tmp_path)
+    assert (svc.positional_ids, svc.positional_padding) == (n, pad)
+    for inner in ("meepo.serve.ragged", "meepo.table.positions", "meepo.tower.attention"):
+        assert _holds(request, "meepo.serve.request", inner), inner
